@@ -1,0 +1,10 @@
+"""leibnizgym_tpu_torch: the PyTorch/CUDA port of leibnizgym_tpu.
+
+The JAX package ``leibnizgym_tpu`` is the reference; this package mirrors its
+module paths (``ops/``, ``envs/``, ``wrappers/``, ``models/``, ``learning/``)
+so each counterpart is easy to find. It imports ``torch`` and never JAX. The
+physics step runs as a hand-written CUDA kernel (``csrc/physics_step.cu``)
+on CUDA tensors and as its plain PyTorch version on CPU tensors.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,70 @@
+"""Carry weights and state from the JAX package to the port.
+
+Inputs are plain numpy (``jax.device_get`` / ``np.asarray`` of the JAX
+pytrees), so this module imports no JAX:
+
+- flax ``ActorCritic`` / ``CentralValue`` params, nested dicts of arrays,
+  become state dicts of ``models.networks``: a Dense kernel (in, out)
+  becomes ``Linear.weight`` (out, in); names ``actor_i``, ``critic_i``,
+  ``mu``, ``value``, ``log_std`` and ``dense_i`` are kept;
+- a JAX ``EnvState`` (any object with the same field names, numpy leaves)
+  becomes the port's ``EnvState``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from leibnizgym_tpu_torch.envs.trifinger.env import EnvState
+from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x), device=device)
+
+
+def flax_params_to_state_dict(params: Mapping[str, Any], device="cpu") -> dict:
+    """Flax ``{"params": {...}}`` (or its inner dict) -> torch state dict."""
+    tree = params.get("params", params)
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, Mapping):
+            out[f"{name}.weight"] = _tensor(np.asarray(leaf["kernel"]).T, device)
+            out[f"{name}.bias"] = _tensor(leaf["bias"], device)
+        else:
+            out[name] = _tensor(leaf, device)
+    return out
+
+
+def _fields(obj) -> dict:
+    if isinstance(obj, Mapping):
+        return dict(obj)
+    return {k: getattr(obj, k) for k in obj.__dataclass_fields__}
+
+
+def env_state_from_jax(state, device="cpu") -> EnvState:
+    """A JAX ``EnvState`` with numpy leaves -> the port's ``EnvState`` (the
+    PRNG key is dropped: the port takes its draws explicitly)."""
+    f = _fields(state)
+    physics = PhysicsState(**{k: _tensor(v, device) for k, v in _fields(f["physics"]).items()})
+    scene = SceneParams(**{k: _tensor(v, device) for k, v in _fields(f["scene"]).items()})
+    return EnvState(
+        physics=physics,
+        scene=scene,
+        pd_scale=_tensor(f["pd_scale"], device),
+        goal_pose_cm=_tensor(f["goal_pose_cm"], device),
+        goal_angvel_cm=_tensor(f["goal_angvel_cm"], device),
+        action_buf=_tensor(f["action_buf"], device),
+        applied_torque=_tensor(f["applied_torque"], device),
+        tip_wrench=_tensor(f["tip_wrench"], device),
+        reset_buf=_tensor(f["reset_buf"], device).to(torch.bool),
+        goal_reset_buf=_tensor(f["goal_reset_buf"], device).to(torch.bool),
+        steps_count=_tensor(f["steps_count"], device).to(torch.int32),
+        successes=_tensor(f["successes"], device).to(torch.int32),
+        tip_pos_prev_cm=_tensor(f["tip_pos_prev_cm"], device),
+        obj_posquat_prev_cm=_tensor(f["obj_posquat_prev_cm"], device),
+        frames=int(np.asarray(f["frames"])),
+    )

@@ -1,0 +1,103 @@
+"""Actor-critic and central-value networks (counterpart of
+``leibnizgym_tpu/models/networks.py``).
+
+rl_games ``actor_critic`` with ``separate: True``: independent actor and
+critic MLP towers (400/200/100, ELU), a state-independent ``log_std``
+initialised to 0 and clipped to [log_std_min, log_std_max], a ``mu`` head
+initialised with variance scaling 0.02, and a central value net of the same
+shape on the privileged state. Layer names follow the flax modules
+(``actor_i``, ``critic_i``, ``mu``, ``value``, ``log_std``, ``dense_i``) so
+``convert.flax_params_to_state_dict`` loads reference weights directly.
+The matmuls are plain ``nn.Linear``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+
+def _variance_scaling_(w: torch.Tensor, scale: float,
+                       generator: Optional[torch.Generator] = None):
+    """flax variance_scaling(scale, "fan_in", "truncated_normal") on a
+    torch (out, in) weight: a normal truncated at 2 std, rescaled so the
+    truncated distribution has variance scale / fan_in."""
+    fan_in = w.shape[1]
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+
+
+def _dense(in_f: int, out_f: int, scale: float, generator) -> nn.Linear:
+    layer = nn.Linear(in_f, out_f)
+    _variance_scaling_(layer.weight, scale, generator)
+    nn.init.zeros_(layer.bias)
+    return layer
+
+
+def _add_tower(module: nn.Module, in_dim: int, units: Sequence[int], prefix: str,
+               generator) -> list:
+    """Add layers ``{prefix}_0..`` (flax names) to ``module``; returns the names."""
+    names = []
+    for i, width in enumerate(units):
+        names.append(f"{prefix}_{i}")
+        setattr(module, names[-1], _dense(in_dim, width, 2.0, generator))
+        in_dim = width
+    return names
+
+
+def _run_tower(module: nn.Module, names, x):
+    for name in names:
+        x = F.elu(getattr(module, name)(x))
+    return x
+
+
+class ActorCritic(nn.Module):
+    """Separate actor/critic towers + fixed log-std (continuous_a2c_logstd).
+    ``forward(obs)`` returns (mu, log_std broadcast to mu, value)."""
+
+    def __init__(self, obs_dim: int, action_dim: int,
+                 units: Sequence[int] = (400, 200, 100), mu_init_scale: float = 0.02,
+                 log_std_min: float = -20.0, log_std_max: float = 2.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.log_std_min = log_std_min
+        self.log_std_max = log_std_max
+        self._actor = _add_tower(self, obs_dim, units, "actor", generator)
+        self.mu = _dense(units[-1], action_dim, mu_init_scale, generator)
+        self.log_std = nn.Parameter(torch.zeros(action_dim))
+        self._critic = _add_tower(self, obs_dim, units, "critic", generator)
+        self.value = _dense(units[-1], 1, 2.0, generator)
+
+    def forward(self, obs: torch.Tensor):
+        mu = self.mu(_run_tower(self, self._actor, obs))
+        log_std = torch.clamp(self.log_std, self.log_std_min, self.log_std_max)
+        value = self.value(_run_tower(self, self._critic, obs))
+        return mu, log_std.expand_as(mu), value[..., 0]
+
+
+class CentralValue(nn.Module):
+    """Privileged-state value network (asymm.yaml central_value_config)."""
+
+    def __init__(self, state_dim: int, units: Sequence[int] = (400, 200, 100),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._hidden = _add_tower(self, state_dim, units, "dense", generator)
+        self.value = _dense(units[-1], 1, 2.0, generator)
+
+    def forward(self, states: torch.Tensor):
+        return self.value(_run_tower(self, self._hidden, states))[..., 0]
+
+
+def gaussian_neglogp(mu: torch.Tensor, log_std: torch.Tensor,
+                     action: torch.Tensor) -> torch.Tensor:
+    """Negative log-density of a diagonal Gaussian (rl_games neglogp form)."""
+    var = torch.exp(2.0 * log_std)
+    return 0.5 * torch.sum(
+        torch.square(action - mu) / var + 2.0 * log_std + math.log(2.0 * math.pi),
+        dim=-1,
+    )

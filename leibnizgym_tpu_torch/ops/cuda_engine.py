@@ -1,0 +1,272 @@
+"""The physics step as a hand-written CUDA kernel (counterpart of
+``ops/pallas_engine.py``).
+
+``csrc/physics_step.cu`` advances every env through one control step, one
+thread per env, on the component-major (C, N) layout: state (31, N), params
+(40, N), tau (9, N) in; state (31, N) and tip impulse sums (18, N) out. It is
+built with nvcc at first use into ``build/leibnizgym_tpu_torch/<hash>/`` (the
+hash covers the source and the flags) and loaded with ctypes.
+
+Dispatch is by the tensors' device and nothing else: ``physics_step_cuda`` on
+CUDA tensors launches the kernel (or raises), on CPU tensors it runs the
+plain PyTorch version ``physics_step_plain`` (``ops/engine_v2.py``).
+``launch_count`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import time
+
+import torch
+
+from leibnizgym_tpu_torch.models import trifinger as tf_model
+from leibnizgym_tpu_torch.ops import engine_v2 as ev2
+from leibnizgym_tpu_torch.ops.engine_v2 import (
+    PARAM_ROWS,
+    STATE_ROWS,
+    WRENCH_ROWS,
+    pack_params,
+    pack_state,
+    unpack_state,
+    wrench_from_impulses,
+)
+from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
+
+__all__ = [
+    "pack_state", "pack_params", "physics_step_cuda", "physics_step_plain",
+    "step_packed_cuda", "launch_count", "build", "kernel_consts",
+]
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "physics_step.cu")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "leibnizgym_tpu_torch")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# one warp per block: at 8192 envs there are 256 warps for 132 SMs (see the
+# source note)
+THREADS_PER_BLOCK = 32
+
+launch_count = 0
+
+_lib = None
+build_info: dict = {}
+
+def _consts_struct(real):
+    """Mirror of ``struct LgConsts`` in csrc/physics_step.cu, whose working
+    type ``real`` is float on the GPU (a host test build may use double)."""
+    r3 = real * 3
+    i32 = ctypes.c_int32
+
+    class LgConsts(ctypes.Structure):
+        _fields_ = [
+            ("o2", r3), ("o3", r3), ("tip", r3),
+            ("mount_z", real), ("tip_off_z", real),
+            ("base_masses", r3),
+            ("coms", r3 * 3),
+            ("inertias", (r3 * 3) * 3),
+            ("mount_c", r3), ("mount_s", r3),
+            ("sample_frac", real * 2), ("sample_radius", real * 2),
+            ("jlow", real * 9), ("jhigh", real * 9),
+            ("contact_slop", real), ("w_min", real),
+            ("finger_bias_cap", real), ("max_cube_angvel", real),
+            ("h", real), ("h_it", real), ("half_h", real), ("half_h_it", real),
+            ("baum_over_h", real), ("tgs_over_h_it", real),
+            ("substeps", i32), ("solver_iterations", i32),
+            ("solver_type", i32), ("object_shape", i32),
+            ("enable_cube_wall", i32), ("enable_tip_ground", i32),
+            ("enable_tip_wall", i32), ("enable_link_cube", i32),
+            ("enable_torsion", i32),
+        ]
+
+    return LgConsts
+
+
+_KernelConsts = _consts_struct(ctypes.c_float)
+
+
+def kernel_consts(cfg: SolverConfig, dt: float, struct=_KernelConsts):
+    """The kernel's constants: robot tables (models/trifinger.py, through
+    ops/engine_v2.py) and the SolverConfig fields. Python-double expressions
+    of the reference (cfg.baumgarte / h, 0.5 * h, ...) are evaluated in
+    double and rounded once, as JAX's weakly typed Python floats are."""
+    samples = tf_model.LOWER_LINK_SAMPLES
+    if len(samples) != 2:
+        raise ValueError("physics_step.cu is built for 2 lower-link samples")
+    h = dt / cfg.substeps
+    h_it = h / cfg.solver_iterations
+    k = struct()
+    k.o2[:] = ev2._O2
+    k.o3[:] = ev2._O3
+    k.tip[:] = ev2._TIP
+    k.mount_z = ev2._MOUNT_Z
+    k.tip_off_z = ev2._TIP_OFF_Z
+    k.base_masses[:] = ev2._BASE_MASSES
+    for l in range(3):
+        k.coms[l][:] = ev2._COMS[l]
+        for i in range(3):
+            k.inertias[l][i][:] = ev2._INERTIAS[l][i]
+    k.mount_c[:] = [c for c, _ in ev2._MOUNT_CS]
+    k.mount_s[:] = [s for _, s in ev2._MOUNT_CS]
+    k.sample_frac[:] = [float(fr) for fr, _ in samples]
+    k.sample_radius[:] = [float(r) for _, r in samples]
+    k.jlow[:] = [float(x) for x in cfg.joint_limit_lower]
+    k.jhigh[:] = [float(x) for x in cfg.joint_limit_upper]
+    k.contact_slop = cfg.contact_slop
+    k.w_min = cfg.w_min
+    k.finger_bias_cap = cfg.finger_bias_cap
+    k.max_cube_angvel = ev2._MAX_CUBE_ANGVEL
+    k.h = h
+    k.h_it = h_it
+    k.half_h = 0.5 * h
+    k.half_h_it = 0.5 * h_it
+    k.baum_over_h = cfg.baumgarte / h
+    k.tgs_over_h_it = cfg.tgs_bias / h_it
+    k.substeps = cfg.substeps
+    k.solver_iterations = cfg.solver_iterations
+    k.solver_type = cfg.solver_type
+    k.object_shape = cfg.object_shape
+    k.enable_cube_wall = int(cfg.enable_cube_wall)
+    k.enable_tip_ground = int(cfg.enable_tip_ground)
+    k.enable_tip_wall = int(cfg.enable_tip_wall)
+    k.enable_link_cube = int(cfg.enable_link_cube)
+    k.enable_torsion = int(cfg.enable_torsion)
+    return k
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+    return path
+
+
+def _parse_ptxas(log: str) -> dict:
+    """Registers and spills of physics_step_kernel from `-Xptxas -v`."""
+    info = {}
+    m = re.search(r"Used (\d+) registers", log)
+    if m:
+        info["registers"] = int(m.group(1))
+    m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                  r"(\d+) bytes spill loads", log)
+    if m:
+        info["stack_frame_bytes"] = int(m.group(1))
+        info["spill_store_bytes"] = int(m.group(2))
+        info["spill_load_bytes"] = int(m.group(3))
+    return info
+
+
+def build() -> ctypes.CDLL:
+    """Build (once per source/flags hash) and load the kernel library."""
+    global _lib, build_info
+    if _lib is not None:
+        return _lib
+    with open(SOURCE, "rb") as f:
+        src = f.read()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = os.path.join(BUILD_ROOT, digest)
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libphysics_step.so")
+    log_path = os.path.join(out_dir, "build.log")
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(lib_path):
+            tmp = lib_path + f".tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with open(log_path, "w") as f:
+                f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
+                )
+            os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(lib_path)
+    ptr = ctypes.c_void_p
+    lib.leibniz_physics_step.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.POINTER(_KernelConsts),
+        ctypes.c_int, ptr,
+    ]
+    lib.leibniz_physics_step.restype = ctypes.c_int
+    lib.leibniz_consts_size.restype = ctypes.c_int
+    if lib.leibniz_consts_size() != ctypes.sizeof(_KernelConsts):
+        raise RuntimeError("LgConsts layout differs between physics_step.cu and Python")
+    with open(log_path) as f:
+        log = f.read()
+    build_info = dict(_parse_ptxas(log), seconds=time.perf_counter() - t0,
+                      library=lib_path, log=log_path)
+    _lib = lib
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, rows: int, n: int, device):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != (rows, n):
+        raise ValueError(f"{name}: expected shape {(rows, n)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def step_packed_cuda(state31: torch.Tensor, params40: torch.Tensor,
+                     tau9: torch.Tensor, cfg: SolverConfig, dt: float,
+                     threads_per_block: int = THREADS_PER_BLOCK):
+    """Launch the kernel on packed CUDA tensors; returns (state' (31, N),
+    impulse sums (18, N)). Raises on anything the kernel does not take."""
+    global launch_count
+    device = state31.device
+    if device.type != "cuda":
+        raise ValueError(f"step_packed_cuda needs CUDA tensors, got {device}")
+    n = state31.shape[1]
+    _check("state", state31, STATE_ROWS, n, device)
+    _check("params", params40, PARAM_ROWS, n, device)
+    _check("tau", tau9, 9, n, device)
+    lib = build()
+    out = torch.empty_like(state31)
+    wrench = torch.empty((WRENCH_ROWS, n), dtype=torch.float32, device=device)
+    consts = kernel_consts(cfg, dt)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.leibniz_physics_step(
+            state31.data_ptr(), params40.data_ptr(), tau9.data_ptr(),
+            out.data_ptr(), wrench.data_ptr(), n, ctypes.byref(consts),
+            int(threads_per_block), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"physics_step kernel launch failed: CUDA error {rc}")
+    launch_count += 1
+    return out, wrench
+
+
+def physics_step_cuda(state: PhysicsState, tau: torch.Tensor, params: SceneParams,
+                      cfg: SolverConfig, dt: float = 0.02):
+    """Batched physics step through the CUDA kernel: state (N,)-batched, tau
+    (N, 9), params batched or broadcastable. Returns (new_state, tip_wrench
+    (N, 3, 6)). CPU tensors take the plain version instead."""
+    if not state.q.is_cuda:
+        return physics_step_plain(state, tau, params, cfg, dt)
+    n = state.q.shape[0]
+    out, imp = step_packed_cuda(pack_state(state), pack_params(params, n),
+                                tau.T.contiguous(), cfg, dt)
+    return unpack_state(out), wrench_from_impulses(imp, dt)
+
+
+def physics_step_plain(state: PhysicsState, tau: torch.Tensor, params: SceneParams,
+                       cfg: SolverConfig, dt: float = 0.02):
+    """The same step as ``physics_step_cuda`` in plain PyTorch, on any device."""
+    return ev2.physics_step_v2(state, tau, params, cfg, dt)

@@ -9,7 +9,13 @@ setup(
         "TPU-native TriFinger RL environment suite: batched JAX rigid-body "
         "physics, TriFinger cube-manipulation task, PPO training stack"
     ),
-    packages=find_packages(include=["leibnizgym_tpu", "leibnizgym_tpu.*"]),
+    # leibnizgym_tpu_torch: the PyTorch/CUDA port (needs torch; its CUDA
+    # kernel is built from csrc/*.cu with nvcc at first use on a GPU)
+    packages=find_packages(include=[
+        "leibnizgym_tpu", "leibnizgym_tpu.*",
+        "leibnizgym_tpu_torch", "leibnizgym_tpu_torch.*",
+    ]),
+    package_data={"leibnizgym_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,108 @@
+"""The CUDA kernel on the card (marker ``cuda``; skips without a GPU).
+
+Imports no JAX, so it runs on a machine that has none. tests/conftest.py
+imports JAX, so on such a machine run it without the conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+- ``step_packed_cuda`` against the plain version on the same card, ragged
+  N = 1000, TGS and PGS, within chip_smoke.py's tolerances (nvcc contracts
+  a*b+c into FMAs and the device sin/cos differ from PyTorch's by an ulp,
+  which the contact solve amplifies, most in the cube's angular velocity);
+- each launch adds one to ``launch_count``, and a CUDA tensor never reaches
+  the plain version;
+- the wrapper refuses a wrong dtype, shape, layout or device.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from leibnizgym_tpu_torch.models import trifinger as tf_model
+from leibnizgym_tpu_torch.ops import cuda_engine
+from leibnizgym_tpu_torch.ops import engine_v2
+from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
+
+pytestmark = pytest.mark.cuda
+
+N = 1000
+# |kernel - plain| <= atol + rtol * |plain|, as in chip_smoke.py
+TOL = {"q": (1e-4, 0.0), "qd": (1e-3, 1e-3), "cube_pos": (1e-4, 0.0),
+       "cube_quat": (1e-4, 0.0), "cube_linvel": (1e-3, 1e-3),
+       "cube_angvel": (5e-3, 5e-3)}
+ROWS = {"q": (0, 9), "qd": (9, 18), "cube_pos": (18, 21), "cube_quat": (21, 25),
+        "cube_linvel": (25, 28), "cube_angvel": (28, 31)}
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda_engine.build()
+    return torch.device("cuda", 0)
+
+
+def _inputs(dev, seed=0):
+    rng = np.random.default_rng(seed)
+    quat = rng.normal(size=(N, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    cols = [np.tile(tf_model.JOINT_POS_DEFAULT, 3) + rng.uniform(-0.4, 0.4, (N, 9)),
+            rng.uniform(-2.0, 2.0, (N, 9)),
+            np.stack([rng.uniform(-0.12, 0.12, N), rng.uniform(-0.12, 0.12, N),
+                      rng.uniform(0.02, 0.08, N)], -1),
+            quat, rng.uniform(-0.5, 0.5, (N, 3)), rng.uniform(-3.0, 3.0, (N, 3))]
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    state = PhysicsState(*(t(c) for c in cols))
+    tau = t(rng.uniform(-0.36, 0.36, (N, 9)))
+    return state, tau, SceneParams.default(device=dev).broadcast(N)
+
+
+@pytest.mark.parametrize("solver_type", [0, 1])
+def test_kernel_matches_plain_on_card(dev, solver_type):
+    cfg = SolverConfig(solver_type=solver_type, substeps=4, solver_iterations=8)
+    state, tau, scene = _inputs(dev)
+    s31 = engine_v2.pack_state(state)
+    p40 = engine_v2.pack_params(scene, N)
+    t9 = tau.T.contiguous()
+    out, imp = cuda_engine.step_packed_cuda(s31, p40, t9, cfg, 0.02)
+    ref, ref_imp = engine_v2.step_packed(s31, p40, t9, cfg, 0.02)
+    torch.cuda.synchronize()
+    for name, (a, b) in ROWS.items():
+        atol, rtol = TOL[name]
+        err = (out[a:b] - ref[a:b]).abs()
+        assert bool((err <= atol + rtol * ref[a:b].abs()).all()), (name, float(err.max()))
+    assert bool(((imp - ref_imp).abs() <= 1e-4 + 1e-4 * ref_imp.abs()).all())
+
+
+def test_cuda_tensors_never_take_the_plain_version(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(cuda_engine, "physics_step_plain", refuse)
+    monkeypatch.setattr(engine_v2, "step_packed", refuse)
+    state, tau, scene = _inputs(dev, seed=1)
+    before = cuda_engine.launch_count
+    new, wrench = cuda_engine.physics_step_cuda(state, tau, scene, SolverConfig(), 0.02)
+    torch.cuda.synchronize()
+    assert cuda_engine.launch_count == before + 1
+    assert new.q.is_cuda and wrench.shape == (N, 3, 6)
+    assert bool(torch.isfinite(wrench).all())
+
+
+def test_wrapper_refuses_bad_inputs(dev):
+    state, tau, scene = _inputs(dev, seed=2)
+    s31 = engine_v2.pack_state(state)
+    p40 = engine_v2.pack_params(scene, N)
+    t9 = tau.T.contiguous()
+    cfg = SolverConfig()
+    before = cuda_engine.launch_count
+    with pytest.raises(TypeError):
+        cuda_engine.step_packed_cuda(s31.double(), p40, t9, cfg, 0.02)
+    with pytest.raises(ValueError):
+        cuda_engine.step_packed_cuda(s31[:, :-1], p40, t9, cfg, 0.02)
+    with pytest.raises(ValueError):
+        cuda_engine.step_packed_cuda(s31, p40, tau.T, cfg, 0.02)
+    with pytest.raises(ValueError):
+        cuda_engine.step_packed_cuda(s31, p40.cpu(), t9, cfg, 0.02)
+    assert cuda_engine.launch_count == before
