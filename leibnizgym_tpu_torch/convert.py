@@ -8,7 +8,11 @@ pytrees), so this module imports no JAX:
   becomes ``Linear.weight`` (out, in); names ``actor_i``, ``critic_i``,
   ``mu``, ``value``, ``log_std`` and ``dense_i`` are kept;
 - a JAX ``EnvState`` (any object with the same field names, numpy leaves)
-  becomes the port's ``EnvState``.
+  becomes the port's ``EnvState``;
+- an optax ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu`` trees shaped
+  like the params) becomes a ``learning.ppo.ClippedAdam`` state dict, with
+  the same kernel -> weight transpose;
+- a JAX ``PPOTrainState`` becomes the port's ``TrainState``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from leibnizgym_tpu_torch.envs.trifinger.env import EnvState
+from leibnizgym_tpu_torch.learning import ppo
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams
 
 
@@ -68,3 +73,43 @@ def env_state_from_jax(state, device="cpu") -> EnvState:
         obj_posquat_prev_cm=_tensor(f["obj_posquat_prev_cm"], device),
         frames=int(np.asarray(f["frames"])),
     )
+
+
+def adam_state_from_jax(opt_state, device="cpu") -> dict:
+    """The ``ScaleByAdamState`` inside an optax chain state (a tuple whose
+    other entries, such as the clip's empty state, hold nothing) -> a
+    ``ClippedAdam.state_dict()``."""
+    states = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    adam = next(s for s in states if hasattr(s, "mu") and hasattr(s, "nu"))
+    return {"count": int(np.asarray(adam.count)),
+            "mu": flax_params_to_state_dict(adam.mu, device),
+            "nu": flax_params_to_state_dict(adam.nu, device)}
+
+
+def train_state_from_jax(ts, cfg: "ppo.PPOConfig", static, device="cpu",
+                         env_state=None) -> "ppo.TrainState":
+    """A JAX ``PPOTrainState`` with numpy leaves -> the port's ``TrainState``:
+    both networks, both optimizer states, ``lr``, ``epoch``, ``frame`` and
+    the rollout carry. ``env_state`` replaces the conversion of
+    ``ts.env_state`` when given. The JAX key does not carry over: the
+    state's generator is seeded with 0."""
+    actor_critic, central_value = ppo.make_networks(cfg, static, device)
+    actor_critic.load_state_dict(flax_params_to_state_dict(ts.ac_params, device))
+    if central_value is not None:
+        central_value.load_state_dict(flax_params_to_state_dict(ts.cv_params, device))
+    carry = ppo.RolloutCarry(
+        env_state=env_state if env_state is not None else env_state_from_jax(ts.env_state, device),
+        obs=_tensor(ts.obs, device),
+        states=_tensor(ts.states, device),
+        ep_return=_tensor(ts.ep_return, device),
+        ep_len=_tensor(ts.ep_len, device).to(torch.int32),
+    )
+    out = ppo.TrainState.create(cfg, actor_critic, central_value, carry,
+                                torch.Generator(device=device).manual_seed(0))
+    out.ac_opt.load_state_dict(adam_state_from_jax(ts.ac_opt_state, device))
+    if central_value is not None:
+        out.cv_opt.load_state_dict(adam_state_from_jax(ts.cv_opt_state, device))
+    out.lr = _tensor(ts.lr, device).to(torch.float32)
+    out.epoch = int(np.asarray(ts.epoch))
+    out.frame = int(np.asarray(ts.frame))
+    return out

@@ -101,3 +101,18 @@ def gaussian_neglogp(mu: torch.Tensor, log_std: torch.Tensor,
         torch.square(action - mu) / var + 2.0 * log_std + math.log(2.0 * math.pi),
         dim=-1,
     )
+
+
+def gaussian_kl(mu0: torch.Tensor, log_std0: torch.Tensor, mu1: torch.Tensor,
+                log_std1: torch.Tensor) -> torch.Tensor:
+    """Analytic KL(p0 || p1), summed over action dims, mean over the batch
+    (rl_games torch_ext.policy_kl)."""
+    sig0sq = torch.exp(2.0 * log_std0)
+    sig1sq = torch.exp(2.0 * log_std1)
+    kl = log_std1 - log_std0 + (sig0sq + torch.square(mu0 - mu1)) / (2.0 * sig1sq) - 0.5
+    return torch.mean(torch.sum(kl, dim=-1))
+
+
+def gaussian_entropy(log_std: torch.Tensor) -> torch.Tensor:
+    """Entropy of the diagonal Gaussian, summed over dims."""
+    return torch.sum(log_std + 0.5 * math.log(2.0 * math.pi * math.e), dim=-1)

@@ -1,0 +1,51 @@
+"""Training CLI of the port, with the override surface of ``scripts/train.py``:
+
+    python -m leibnizgym_tpu_torch.scripts.train gym=trifinger_difficulty_1 args.num_envs=8192
+    python -m leibnizgym_tpu_torch.scripts.train gym=trifinger_difficulty_1 args.device=cpu \\
+        args.num_envs=8 args.max_epochs=2
+    python -m leibnizgym_tpu_torch.scripts.train args.play=True \\
+        args.checkpoint=logs/<stamp>/nn/best
+
+``args.device`` is a torch device string; the default ``TPU`` means
+``cuda:0``, and asking for CUDA where there is none is an error. Not in the
+port yet (ROADMAP.md queue 1, item 14): ``args.multihost``,
+``args.wandb_log`` and the viewer (``args.headless=False``).
+"""
+
+from __future__ import annotations
+
+import sys
+
+from leibnizgym_tpu.utils import print_dict, print_info
+from leibnizgym_tpu_torch.config.presets import parse_cli, update_cfg
+from leibnizgym_tpu_torch.learning.train import run_training
+
+
+def main(argv):
+    cfg = update_cfg(parse_cli(argv))
+    args = cfg["args"]
+    for key in ("multihost", "wandb_log"):
+        if args.get(key):
+            raise NotImplementedError(
+                f"args.{key} is not in the PyTorch port yet (ROADMAP.md queue 1, item 14)")
+    if args["verbose"]:
+        print_info("Full configuration:")
+        print_dict(cfg)
+    return run_training(
+        task_cfg=cfg["gym"],
+        agent_cfg=cfg["rlg"],
+        logdir=args["logdir"],
+        seed=args["seed"],
+        train=args["train"],
+        checkpoint=args["checkpoint"],
+        max_epochs=args["max_epochs"],
+        play_steps=args["play_steps"],
+        verbose=args["verbose"],
+        watchdog_timeout=args.get("watchdog_timeout"),
+        visualize=not args.get("headless", True),
+        device=args["device"],
+    )
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -11,8 +11,13 @@ imports JAX, so on such a machine run it without the conftest:
   which the contact solve amplifies, most in the cube's angular velocity);
 - each launch adds one to ``launch_count``, and a CUDA tensor never reaches
   the plain version;
-- the wrapper refuses a wrong dtype, shape, layout or device.
+- the wrapper refuses a wrong dtype, shape, layout or device;
+- one learner step (actor-critic and central value) on the card against the
+  same step on the CPU, as chip_smoke.py phase 5 holds it.
 """
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -106,3 +111,16 @@ def test_wrapper_refuses_bad_inputs(dev):
     with pytest.raises(ValueError):
         cuda_engine.step_packed_cuda(s31, p40.cpu(), t9, cfg, 0.02)
     assert cuda_engine.launch_count == before
+
+
+def test_learner_step_on_card_matches_cpu(dev):
+    """One actor-critic and one central-value step at the D1 widths on the
+    card against the CPU, TF32 off, within chip_smoke.py's stated bounds
+    (losses and KL rtol 1e-4; parameters max 2 lr + 1e-6 and >= 99.9% within
+    1e-6; the same next lr)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    rel, worst, within, lr_same, ok = chip_smoke.learner_card_vs_cpu(dev)
+    assert ok, (rel, worst, within, lr_same)

@@ -4,8 +4,9 @@ The machine the port runs on has no JAX, so every module of
 ``leibnizgym_tpu_torch`` and ``chip_smoke.py`` must import without it, and
 a CPU env step must run without it. A subprocess blocks ``jax``, ``flax``,
 ``optax`` and ``orbax`` with a ``sys.meta_path`` finder, imports every
-module of the port and ``chip_smoke.py``, and steps a 2-env
-``TrifingerEnv``.
+module of the port (the learner, runner, training entry and CLI among
+them) and ``chip_smoke.py``, steps a 2-env ``TrifingerEnv`` and trains a
+2-env ``Runner`` for one epoch.
 """
 
 import os
@@ -55,6 +56,24 @@ states = task.get_state()
 assert obs.shape == (2, 41) and states.shape == (2, 113) and reward.shape == (2,)
 assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(states).all())
 assert float(obs.abs().max()) <= 5.0 and float(states.abs().max()) <= 5.0
+for name in ("learning.ppo", "learning.runner", "learning.train", "scripts.train",
+             "wrappers.frame_stack", "convert"):
+    assert "leibnizgym_tpu_torch." + name in names, name
+
+# one epoch of the training path: Runner, rollout, GAE, updates, checkpoint
+import tempfile
+from leibnizgym_tpu_torch.config.presets import default_config, update_cfg
+from leibnizgym_tpu_torch.learning.runner import Runner
+
+cfg = default_config()
+cfg["args"].update(num_envs=2, seed=0)
+cfg = update_cfg(cfg)
+cfg["gym"]["sim"].update(substeps=1, physx={"num_position_iterations": 2})
+cfg["rlg"]["params"]["config"].update(steps_num=2, mini_epochs=1, frames=2)
+with tempfile.TemporaryDirectory() as logdir:
+    runner = Runner(cfg["gym"], cfg["rlg"]["params"], logdir=logdir, seed=0, device="cpu")
+    runner.train(max_epochs=1)
+    assert runner.ts.epoch == 1
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("imported", len(names), "modules")

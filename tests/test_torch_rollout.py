@@ -14,6 +14,8 @@
   float32 rounding (1e-6) and the env outputs to 2e-4, the goldens' bound.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,13 +97,14 @@ def test_network_init_statistics():
 def test_ppo_config_subset_matches_reference():
     params = rlg_asymm_config()["params"]
     ref = jppo.PPOConfig.from_rlg_params(params, 8192)
-    port = tppo.PPOConfig.from_rlg_params(params)
-    for name in ("gamma", "tau", "horizon", "reward_shaper_scale", "clip_obs",
-                 "clip_actions", "units", "log_std_min", "central_value"):
-        assert getattr(port, name) == getattr(ref, name), name
+    port = tppo.PPOConfig.from_rlg_params(params, 8192)
+    for f in dataclasses.fields(tppo.PPOConfig):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
     assert port.horizon == 32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tppo.PPOConfig.from_rlg_params({"config": dict(params["config"], frames=3)})
+    # frame stacking is ported; num_actors is the default minibatch size
+    stacked = {k: v for k, v in params["config"].items() if k != "minibatch_size"}
+    port = tppo.PPOConfig.from_rlg_params({"config": dict(stacked, frames=3)}, 64)
+    assert port.frames == 3 and port.minibatch_size == 64
 
 
 @pytest.mark.parametrize("seed", [0, 1])
