@@ -24,8 +24,25 @@ Phases (each prints its own lines; any failure exits non-zero):
     version on the trained state; one actor-critic and one central-value step
     on the card against the same step on the CPU (TF32 off); then the epoch
     time split into rollout / GAE / update (CUDA events, first epoch as
-    warm-up) and training env-steps/s.
-The last two lines are the kernels' JSON record and the device JSON line.
+    warm-up) and training env-steps/s;
+ 6. the D4 flagship: ``trifinger_difficulty_4_curriculum_dr`` (domain
+    randomization, keypoint obs, success-gated curriculum, cone arena) with
+    the asymmetric agent config and the preset's agent overrides, 8192 envs,
+    full widths (obs 89, states 161), through ``Runner.train`` for a warm-up
+    epoch and 3 timed ones. Checks: 1 + 32 * 4 kernel launches, finite
+    losses, KL and lr in range, the curriculum level in [0, 1] with the
+    tolerances on its lerp, DR live (per-env cube mass and size and PD
+    scales spread inside their ranges, inertia = mass * size^2), the kernel
+    against its plain version on the trained DR state and scenes; then its
+    time there and the epoch split;
+ 7. replay of the shipped D4 policies (``leibnizgym_tpu_torch/resources/
+    policies/*.npz``) through the port's eval, deterministic, level 1.0,
+    1024 envs for one 750-step episode, each under the recipe it was trained
+    on: the per-goal solve rate of tests/test_shipped_policies.py must be
+    >= 0.90 with >= 200 goals solved; the raw and censoring-corrected rates
+    and the median solve time print beside the JAX package's recorded ones.
+The last two lines are the kernels' JSON record (launches and times from
+phase 6) and the device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
 
@@ -43,7 +60,7 @@ try:
     import numpy as np
     import torch
 
-    from leibnizgym_tpu_torch.config.presets import default_config, update_cfg
+    from leibnizgym_tpu_torch.config.presets import default_config, parse_cli, update_cfg
     from leibnizgym_tpu_torch.models import trifinger as tf_model
     from leibnizgym_tpu_torch.envs.trifinger import env as tenv
     from leibnizgym_tpu_torch.learning import ppo
@@ -52,6 +69,11 @@ try:
     from leibnizgym_tpu_torch.ops import cuda_engine
     from leibnizgym_tpu_torch.ops.engine_v2 import pack_params, pack_state, step_packed
     from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
+    from leibnizgym_tpu_torch.scripts.eval_policy import (
+        goal_solve_stats,
+        record_goals,
+        window_solve_rate,
+    )
 except ImportError as exc:  # run outside the repository
     print(f"chip_smoke: cannot import the port ({exc})", file=sys.stderr)
     sys.exit(2)
@@ -65,6 +87,12 @@ TGS = dict(solver_type=1, substeps=4, solver_iterations=8)
 # PyTorch's by an ulp; the contact solve amplifies such differences, most in
 # the cube's angular velocity (its inverse inertia is ~1.8e4 1/(kg m^2)).
 # Positions and orientations stay within 1e-4; velocities get a relative term.
+# On a resting cube both float32 versions can land ~4e-3 rad/s off the
+# float64 angular velocity, in opposite directions (measured on the H100 on
+# D1 and D4 + DR states, about one element in 25 states of 8192 envs); where
+# the caller passes ``referee64``, an element outside the bound of the float32
+# plain version passes if the kernel is within the same bound of the plain
+# version run in float64 on the same inputs.
 KERNEL_TOL = {
     "q": (1e-4, 0.0), "qd": (1e-3, 1e-3), "cube_pos": (1e-4, 0.0),
     "cube_quat": (1e-4, 0.0), "cube_linvel": (1e-3, 1e-3),
@@ -363,17 +391,7 @@ def phase_training(dev, num_envs: int = 8192, epochs: int = EPOCHS):
     cfg["args"]["seed"] = SEED
     cfg = update_cfg(cfg)
     marks, history = [], []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    def train_iter(pcfg, static, env_params, ts):
-        mark("start")
-        metrics = ppo.train_iteration(pcfg, static, env_params, ts, on_phase=mark)
-        history.append(metrics)
-        return metrics
+    train_iter = marked_train_iter(history, marks)
 
     with tempfile.TemporaryDirectory() as logdir:
         runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
@@ -398,22 +416,10 @@ def phase_training(dev, num_envs: int = 8192, epochs: int = EPOCHS):
         check(launches == 1 + h * epochs, f"training launch_count {launches} != {1 + h * epochs}")
 
         # every epoch's metrics are finite, lr in range; the parameters moved
-        rows = [{k: float(v) for k, v in m.items() if not torch.is_tensor(v) or v.dim() == 0}
-                for m in history]
-        keys = [k for k in rows[0] if k.startswith("losses/")] + ["info/kl", "info/lr"]
-        check(len(rows) == epochs and all(np.isfinite(r[k]) for r in rows for k in keys),
-              "a loss, kl or lr is not finite")
-        # the clamp bounds as float32 holds them (1e-6 is 9.99999997e-07)
-        check(all(np.float32(1e-6) <= r["info/lr"] <= np.float32(1e-2) for r in rows),
-              "lr outside [1e-6, 1e-2]")
-        check(rows[-1]["info/frames"] == epochs * h * n,
-              f"info/frames {rows[-1]['info/frames']} != {epochs * h * n}")
+        check_epoch_metrics("train", history, epochs, h, n)
         trained = runner._ckpt_payload()
         moved = any(not torch.equal(start[k], v) for k, v in trained["ac_state_dict"].items())
         check(moved, "the parameters did not move")
-        for e, r in enumerate(rows, 1):
-            print(f"train epoch={e} " + " ".join(f"{k}={r[k]:.6g}" for k in keys)
-                  + f" step_reward={r['rewards/step_mean']:.6g}", flush=True)
 
         # the final checkpoint restores bit-identically into a fresh Runner
         fresh = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
@@ -429,39 +435,265 @@ def phase_training(dev, num_envs: int = 8192, epochs: int = EPOCHS):
               f"restore_bit_identical={same} play_reward={play_reward:.6g}", flush=True)
 
         # the kernel against its plain version on the trained path's state
-        es = runner.ts.carry.env_state
-        s31, p40 = pack_state(es.physics), pack_params(es.scene, n)
-        t9 = es.applied_torque.T.contiguous()
-        out, wrench = cuda_engine.step_packed_cuda(s31, p40, t9, st.solver, st.dt)
-        ref, ref_w = step_packed(s31, p40, t9, st.solver, st.dt)
-        torch.cuda.synchronize()
-        diffs, ok = compare(out, wrench, ref, ref_w)
-        print(f"train kernel_vs_plain n={n} " + " ".join(f"{k}={v:.3e}" for k, v in diffs.items())
-              + f" within_tol={ok}", flush=True)
-        check(ok, "kernel vs plain on the trained state")
+        diffs, _ = kernel_vs_plain_on("train", runner.ts.carry.env_state, st)
 
     rel, worst, within, lr_same, ok = learner_card_vs_cpu(dev)
     print(f"learner card_vs_cpu loss_kl_rel={rel:.3e} param_max_abs={worst:.3e} "
           f"param_within_1e-6={within:.6f} lr_equal={lr_same} within_tol={ok}", flush=True)
     check(ok, "learner step on the card vs the CPU")
 
-    # epoch time (start to next start) and its split, epochs 2.. (1 = warm-up)
+    print_epoch_split("train", marks, epochs, h, n)
+    return {"launches": launches, "max_abs_err": max(diffs.values())}
+
+
+def check_epoch_metrics(tag: str, history: list, epochs: int, h: int, n: int) -> list:
+    """Every epoch's losses, KL and lr finite, lr within its clamp, the
+    frame count; prints one line per epoch and returns the scalar rows."""
+    rows = [{k: float(v) for k, v in m.items() if not torch.is_tensor(v) or v.dim() == 0}
+            for m in history]
+    keys = [k for k in rows[0] if k.startswith("losses/")] + ["info/kl", "info/lr"]
+    check(len(rows) == epochs and all(np.isfinite(r[k]) for r in rows for k in keys),
+          f"{tag}: a loss, kl or lr is not finite")
+    # the clamp bounds as float32 holds them (1e-6 is 9.99999997e-07)
+    check(all(np.float32(1e-6) <= r["info/lr"] <= np.float32(1e-2) for r in rows),
+          f"{tag}: lr outside [1e-6, 1e-2]")
+    check(rows[-1]["info/frames"] == epochs * h * n,
+          f"{tag}: info/frames {rows[-1]['info/frames']} != {epochs * h * n}")
+    for e, r in enumerate(rows, 1):
+        print(f"{tag} epoch={e} " + " ".join(f"{k}={r[k]:.6g}" for k in keys)
+              + f" step_reward={r['rewards/step_mean']:.6g}", flush=True)
+    return rows
+
+
+def kernel_vs_plain_on(tag: str, es, st, referee64: bool = False):
+    """The kernel against its plain version on an env state and its
+    per-env scenes, with the float64 referee of KERNEL_TOL's note when
+    ``referee64``; returns (per-field max abs diffs, packed inputs)."""
+    n = st.num_envs
+    s31, p40 = pack_state(es.physics), pack_params(es.scene, n)
+    t9 = es.applied_torque.T.contiguous()
+    out, wrench = cuda_engine.step_packed_cuda(s31, p40, t9, st.solver, st.dt)
+    ref, ref_w = step_packed(s31, p40, t9, st.solver, st.dt)
+    torch.cuda.synchronize()
+    diffs, ok = compare(out, wrench, ref, ref_w)
+    note = ""
+    if not ok and referee64:
+        ref64, ref64_w = step_packed(s31.double(), p40.double(), t9.double(), st.solver, st.dt)
+        outside, refereed = elements_outside(out, wrench, ref, ref_w, ref64, ref64_w)
+        ok = refereed == 0
+        note = (f" outside_float32_plain={outside} outside_both_float32_and_float64="
+                f"{refereed} diff_to_float64=" + ",".join(
+                    f"{k}:{v:.3e}" for k, v in compare(out, wrench, ref64.float(),
+                                                       ref64_w.float())[0].items()))
+    print(f"{tag} kernel_vs_plain n={n} " + " ".join(f"{k}={v:.3e}" for k, v in diffs.items())
+          + note + f" within_tol={ok}", flush=True)
+    check(ok, f"kernel vs plain on the {tag} state")
+    return diffs, (s31, p40, t9)
+
+
+def elements_outside(out, wrench, ref, ref_wrench, ref64, ref64_wrench):
+    """(elements outside KERNEL_TOL of the float32 plain version, those of
+    them also outside it of the float64 plain version)."""
+    outside = refereed = 0
+    fields = [(k, out[a:b], ref[a:b], ref64[a:b]) for k, (a, b) in ROWS.items()]
+    fields.append(("wrench", wrench, ref_wrench, ref64_wrench))
+    for name, x, y, y64 in fields:
+        atol, rtol = KERNEL_TOL[name]
+        bad = ~((x - y).abs() <= atol + rtol * y.abs())
+        bad64 = ~((x.double() - y64).abs() <= atol + rtol * y64.abs())
+        outside += int(bad.sum())
+        refereed += int((bad & bad64).sum())
+    return outside, refereed
+
+
+def marked_train_iter(history: list, marks: list):
+    """``ppo.train_iteration`` recording its metrics in ``history`` and a
+    CUDA event at its start and after each of its phases in ``marks``."""
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def train_iter(pcfg, static, env_params, ts):
+        mark("start")
+        metrics = ppo.train_iteration(pcfg, static, env_params, ts, on_phase=mark)
+        history.append(metrics)
+        return metrics
+
+    return train_iter
+
+
+def print_epoch_split(tag: str, marks: list, epochs: int, h: int, n: int):
+    """Epoch time (start to next start) and its split into rollout / GAE /
+    update, epochs 2.. (1 = warm-up), next to the card's name and limit."""
     per_epoch = [marks[i:i + 4] for i in range(0, len(marks), 4)]
     check(len(per_epoch) == epochs and all([m[0] for m in p] == ["start", "rollout", "gae", "update"]
-                                            for p in per_epoch), "phase marks out of order")
+                                            for p in per_epoch), f"{tag}: phase marks out of order")
     split = {name: [p[j - 1][1].elapsed_time(p[j][1]) for p in per_epoch[1:]]
              for j, name in ((1, "rollout"), (2, "gae"), (3, "update"))}
     epoch_ms = [a[0][1].elapsed_time(b[0][1]) for a, b in zip(per_epoch[1:], per_epoch[2:])]
     med = float(np.median(epoch_ms))
-    print(f"{smi()} train epoch_ms median={med:.3f} min={min(epoch_ms):.3f} "
+    print(f"{smi()} {tag} epoch_ms median={med:.3f} min={min(epoch_ms):.3f} "
           f"max={max(epoch_ms):.3f} n={len(epoch_ms)} all=" + ",".join(f"{x:.3f}" for x in epoch_ms),
           flush=True)
     for name, xs in split.items():
-        print(f"{smi()} train {name}_ms median={float(np.median(xs)):.3f} min={min(xs):.3f} "
+        print(f"{smi()} {tag} {name}_ms median={float(np.median(xs)):.3f} min={min(xs):.3f} "
               f"max={max(xs):.3f} n={len(xs)}", flush=True)
-    print(f"{smi()} train env_steps_per_s={h * n / (med / 1e3):.1f} "
+    print(f"{smi()} {tag} env_steps_per_s={h * n / (med / 1e3):.1f} "
           f"(32 x {n} / median epoch)", flush=True)
-    return {"launches": launches, "max_abs_err": max(diffs.values())}
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+D4_PRESET = "trifinger_difficulty_4_curriculum_dr"
+D4_EPOCHS = 4  # a warm-up epoch, then 3 timed epochs
+
+
+def phase_d4(dev, num_envs: int = 8192, epochs: int = D4_EPOCHS):
+    """The D4 flagship recipe (DR, keypoint obs, success-gated curriculum)
+    through Runner.train at full widths; returns the kernel's record."""
+    cfg = parse_cli([f"gym={D4_PRESET}"])  # rlg = asymm, with the preset's rlg_overrides
+    cfg["args"]["num_envs"] = num_envs
+    cfg["args"]["seed"] = SEED
+    cfg = update_cfg(cfg)
+    marks, history = [], []
+    with tempfile.TemporaryDirectory() as logdir:
+        runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                        seed=SEED, device=dev)
+        pcfg, st = runner.ppo_cfg, runner.static
+        widths = (st.obs_dim, st.state_dim, pcfg.units, pcfg.minibatch_size,
+                  pcfg.cv_minibatch_size, pcfg.mini_epochs, pcfg.cv_mini_epochs, pcfg.horizon,
+                  st.solver.substeps, st.solver.solver_iterations, st.solver.solver_type)
+        check(widths == (89, 161, (400, 200, 100), 8192, 8192, 4, 4, 32, 4, 8, 1),
+              f"phase 6 is not the D4 preset at full widths: {widths}")
+        base = runner.env_params.scene_base
+        check(st.dr_activate and st.use_keypoint_obs and st.curriculum_success_gated
+              and float(base.wall_slope) > 0, "phase 6 lacks DR, keypoints, the gated "
+              "curriculum or the cone arena")
+        runner._train_iter = marked_train_iter(history, marks)
+
+        # this slice's path, counted
+        cuda_engine.launch_count = 0
+        runner.reset()
+        t0 = time.perf_counter()
+        runner.train(max_epochs=epochs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = cuda_engine.launch_count
+        h, n = pcfg.horizon, st.num_envs
+        check(launches == 1 + h * epochs, f"d4 launch_count {launches} != {1 + h * epochs}")
+        rows = check_epoch_metrics("d4", history, epochs, h, n)
+
+        # the curriculum level and the tolerances at that level
+        for e, r in enumerate(rows, 1):
+            lvl = r["env/curriculum_level"]
+            pos = st.position_tolerance_init + lvl * (st.position_tolerance
+                                                      - st.position_tolerance_init)
+            ori = st.orientation_tolerance_init + lvl * (st.orientation_tolerance
+                                                         - st.orientation_tolerance_init)
+            ok = (0.0 <= lvl <= 1.0 and abs(r["env/position_tolerance"] - pos) <= 1e-6
+                  and abs(r["env/orientation_tolerance"] - ori) <= 1e-6
+                  and 0.0 <= r["env/strict_success_frac"] <= 1.0)
+            print(f"d4 epoch={e} curriculum_level={lvl:.6g} "
+                  f"position_tolerance={r['env/position_tolerance']:.6g} "
+                  f"orientation_tolerance={r['env/orientation_tolerance']:.6g} "
+                  f"strict_success_frac={r['env/strict_success_frac']:.6g} lerp_ok={ok}", flush=True)
+            check(ok, f"d4 epoch {e}: level or tolerances off the lerp")
+
+        # DR is live: per-env draws spread inside the configured ranges
+        es = runner.ts.carry.env_state
+        ranges = {k: (lo, hi) for k, lo, hi in st.dr_ranges}
+        mass = es.scene.cube_mass / base.cube_mass
+        size = es.scene.cube_half_extents / base.cube_half_extents
+        spreads = {"cube_mass_scale": mass, "cube_size_scale": size,
+                   "pd_gain_scale": es.pd_scale}
+        bounds = dict(ranges, pd_gain_scale=st.dr_pd_gain_scale)
+        for name, x in spreads.items():
+            lo, hi = bounds[name]
+            ok = (float(x.min()) >= lo - 1e-5 and float(x.max()) <= hi + 1e-5
+                  and float(x.std()) > 0)
+            print(f"d4 dr {name} min={float(x.min()):.6f} max={float(x.max()):.6f} "
+                  f"std={float(x.std()):.6f} range=({lo}, {hi}) live={ok}", flush=True)
+            check(ok, f"d4 DR {name} not live inside {lo, hi}")
+        inertia = base.cube_inertia * (mass * size[:, 0] ** 2)[:, None]
+        check(bool(torch.allclose(es.scene.cube_inertia, inertia, rtol=1e-5)),
+              "d4 DR inertia is not mass * size^2")
+        print(f"d4 epochs={epochs} launches={launches} wall_s={wall_s:.3f}", flush=True)
+
+        # the kernel against its plain version on the trained DR state and scenes
+        diffs, (s31, p40, t9) = kernel_vs_plain_on("d4", es, st, referee64=True)
+        kernel_ms = cuda_ms(lambda: cuda_engine.step_packed_cuda(s31, p40, t9, st.solver, st.dt), 50)
+        plain_ms = cuda_ms(lambda: step_packed(s31, p40, t9, st.solver, st.dt), 2)
+        print(f"{smi()} physics_step d4_dr n={n} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.2f}",
+              flush=True)
+        if runner.writer is not None:
+            runner.writer.close()
+    print_epoch_split("d4", marks, epochs, h, n)
+    return {"launches": launches, "max_abs_err": max(diffs.values()), "ms": kernel_ms,
+            "plain_ms": plain_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+POLICY_DIR = os.path.join(ROOT, "leibnizgym_tpu_torch", "resources", "policies")
+# policy, gym preset, overrides it was trained under, and the JAX package's
+# recorded eval of that recipe (raw, censoring-corrected, median steps):
+# results/d4dr_cone_s42_eval_r5.json (RESULTS.md:343), results/d4_eval_r4.json
+# (RESULTS.md:55-60), results/d4rot_scratch_eval_r5.json (RESULTS.md:374-378)
+REPLAYS = (
+    ("d4_dr_cone_best_curriculum", "trifinger_difficulty_4_curriculum_dr", (),
+     (0.974, 0.9982, 19.0)),
+    ("d4_best_curriculum", "trifinger_difficulty_4_curriculum",
+     ("gym.arena.profile=cylinder",), (0.9763, 0.999, 18.0)),
+    ("d4_rotating_best_curriculum", "trifinger_difficulty_4_curriculum_rotating", (),
+     (0.9748, 0.9989, 18.0)),
+)
+REPLAY_ENVS, REPLAY_STEPS = 1024, 750  # one full episode
+SOLVE_GATE, MIN_SOLVED = 0.90, 200  # tests/test_shipped_policies.py:71-80
+
+
+def phase_replay(dev):
+    """Each shipped policy, deterministic, at level 1.0, for one episode
+    through the port's eval; returns [(name, window rate, stats)]."""
+    results = []
+    for name, gym, overrides, (j_raw, j_cor, j_med) in REPLAYS:
+        cfg = update_cfg(parse_cli([f"gym={gym}", f"args.num_envs={REPLAY_ENVS}",
+                                    "args.play=True", f"args.seed={SEED}", *overrides]))
+        with tempfile.TemporaryDirectory() as logdir:
+            runner = Runner(cfg["gym"], cfg["rlg"]["params"], logdir=logdir, seed=SEED,
+                            device=dev)
+            runner.reset()
+            runner.restore(os.path.join(POLICY_DIR, name + ".npz"))
+            st = runner.static
+            cuda_engine.launch_count = 0
+            t0 = time.perf_counter()
+            record = record_goals(runner, REPLAY_STEPS, level=1.0, deterministic=True, seed=SEED)
+            wall_s = time.perf_counter() - t0
+            launches = cuda_engine.launch_count
+            if runner.writer is not None:
+                runner.writer.close()
+        check(launches == 1 + REPLAY_STEPS, f"{name}: launch_count {launches} != "
+              f"{1 + REPLAY_STEPS}")
+        stats = goal_solve_stats(*record, st.episode_length, st.position_tolerance,
+                                 st.orientation_tolerance)
+        solved, attempts, rate = window_solve_rate(record[0])
+        corrected = stats.get("censoring_corrected", {}).get("corrected_solve_rate")
+        print(f"replay {name} gym={gym} dr={st.dr_activate} rotation={st.goal_rotation_active} "
+              f"arena_slope={float(runner.env.params.scene_base.wall_slope):.3f} "
+              f"envs={st.num_envs} steps={REPLAY_STEPS} launches={launches} wall_s={wall_s:.3f} "
+              f"goals={stats['goals_attempted']} solved={solved} gate_attempts={attempts} "
+              f"gate_rate={rate:.6f} raw={stats['goal_solve_rate']} corrected={corrected} "
+              f"median_steps={stats['solve_time_steps']['median']} "
+              f"jax_recorded raw={j_raw} corrected={j_cor} median_steps={j_med}", flush=True)
+        check(solved >= MIN_SOLVED and rate >= SOLVE_GATE,
+              f"{name}: per-goal solve {rate:.4f} ({solved}/{attempts}) below {SOLVE_GATE}")
+        results.append((name, rate, stats))
+    return results
 
 
 def main() -> int:
@@ -484,10 +716,14 @@ def main() -> int:
 
     phase_kernel_vs_plain(dev)
     phase_golden(dev)
-    record = phase_slice(dev)
+    d1 = phase_slice(dev)
     trained = phase_training(dev)
-    record = dict(record, launches=trained["launches"],
-                  max_abs_err=max(record["max_abs_err"], trained["max_abs_err"]))
+    d4 = phase_d4(dev)
+    phase_replay(dev)
+    # this slice's path (phase 6) gives the launches and times; the error is
+    # the worst of phases 4-6
+    record = dict(d4, max_abs_err=max(d1["max_abs_err"], trained["max_abs_err"],
+                                      d4["max_abs_err"]))
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)

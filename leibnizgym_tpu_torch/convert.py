@@ -12,7 +12,11 @@ pytrees), so this module imports no JAX:
 - an optax ``ScaleByAdamState`` (``count``, and ``mu`` / ``nu`` trees shaped
   like the params) becomes a ``learning.ppo.ClippedAdam`` state dict, with
   the same kernel -> weight transpose;
-- a JAX ``PPOTrainState`` becomes the port's ``TrainState``.
+- a JAX ``PPOTrainState`` becomes the port's ``TrainState``;
+- a weights-only ``.npz`` policy (``np.savez`` of a JAX checkpoint's leaves
+  under their ``/``-joined tree paths: ``ac_params/...``, ``cv_params/...``,
+  ``curriculum_level``, ``epoch``, ``frame``) becomes a checkpoint payload
+  that ``learning.runner.Runner.restore`` loads into its ``TrainState``.
 """
 
 from __future__ import annotations
@@ -42,6 +46,36 @@ def flax_params_to_state_dict(params: Mapping[str, Any], device="cpu") -> dict:
         else:
             out[name] = _tensor(leaf, device)
     return out
+
+
+def checkpoint_from_npz(path: str, device="cpu") -> dict:
+    """A weights-only ``.npz`` policy -> the runner's checkpoint payload
+    (state dicts, ``epoch``, ``frame``, ``curriculum_level`` when present;
+    no optimizer states and no ``lr``)."""
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+
+    def tree(prefix: str) -> dict:
+        out: dict = {}
+        for key, value in flat.items():
+            if key.startswith(prefix + "/"):
+                *parents, leaf = key[len(prefix) + 1:].split("/")
+                node = out
+                for p in parents:
+                    node = node.setdefault(p, {})
+                node[leaf] = value
+        return out
+
+    cv = tree("cv_params")
+    payload = {
+        "ac_state_dict": flax_params_to_state_dict(tree("ac_params"), device),
+        "cv_state_dict": flax_params_to_state_dict(cv, device) if cv else None,
+        "epoch": int(flat["epoch"]),
+        "frame": int(flat["frame"]),
+    }
+    if "curriculum_level" in flat:
+        payload["curriculum_level"] = float(flat["curriculum_level"])
+    return payload
 
 
 def _fields(obj) -> dict:

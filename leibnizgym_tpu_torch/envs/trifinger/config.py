@@ -2,9 +2,7 @@
 ``leibnizgym_tpu/envs/trifinger/config.py``; the same keys and values).
 
 Sim defaults live in ``envs.env_base.SIM_DEFAULT_CONFIG_DICT`` and are
-re-exported here. Knobs the port does not implement yet (domain
-randomization, goal rotation, keypoint observations, observation noise,
-curricula) raise NotImplementedError when a config turns them on.
+re-exported here.
 """
 
 from __future__ import annotations

@@ -5,21 +5,20 @@ of ``leibnizgym_tpu/envs/trifinger/env.py``).
               -> (EnvState, obs, states, reward, dones, info)
 
 batched over the env axis on one torch device. All randomness is "draw,
-then a pure function of the draws": the stateful ``TrifingerEnv`` draws the
-(n, 25) uniform blocks of a full reset and of a goal reset from its
-``torch.Generator`` each step, and tests inject the reference's draws. The
-physics step is the CUDA kernel on a CUDA device and its plain PyTorch
-version on the CPU (``ops/cuda_engine.py``).
+then a pure function of the draws": the stateful ``TrifingerEnv`` draws each
+step's blocks (``draw_step_randoms``: full reset, goal reset, domain
+randomization, observation noise) from its ``torch.Generator``, and tests
+inject the reference's draws. The physics step is the CUDA kernel on a CUDA
+device and its plain PyTorch version on the CPU (``ops/cuda_engine.py``).
 
 Reference quirks kept: zero action on an env's reset step; dones = reset AND
 goal_reset under ``dones_mode: "and"``; with success termination off,
 ``successes`` becomes a 0/1 flag; the ``robot_a`` state slot holds the
-applied torque; frame counters become float before ``* num_envs``.
+applied torque; frame counters become float32 before ``* num_envs``.
 
-Not in the port yet (a config that turns one on raises NotImplementedError
-naming its ROADMAP.md item): domain randomization, goal rotation, keypoint
-observations, observation noise, the goal-orientation and tolerance
-curricula.
+The flagship recipe's features are in: domain randomization (``dr/``),
+keypoint observations, goal rotation, observation noise, the frame-ramp and
+success-gated (``EnvParams.curriculum_level``) goal and tolerance curricula.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from leibnizgym_tpu_torch import dr
 from leibnizgym_tpu_torch.models import trifinger as tf_model
 from leibnizgym_tpu.utils.helpers import merged_dict
 from leibnizgym_tpu.utils.message import print_info
@@ -42,9 +42,11 @@ from leibnizgym_tpu_torch.envs.trifinger.config import (
 from leibnizgym_tpu_torch.envs.trifinger.dims import CuboidalObject, SphereObject
 from leibnizgym_tpu_torch.envs.trifinger.rewards import (
     RewardTermSpec,
+    _qmul_c,
     build_reward_specs,
     compute_rewards_c,
     quat_diff_rad_c,
+    quat_rotate_c,
 )
 from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda, physics_step_plain
 from leibnizgym_tpu_torch.ops.engine_v2 import fingertip_components_v2
@@ -54,8 +56,6 @@ from leibnizgym_tpu_torch.utils.math import (
     scale_transform,
     unscale_transform,
 )
-
-_NOT_PORTED = "is not in the PyTorch port yet (ROADMAP.md queue 1, item 11)"
 
 # ---------------------------------------------------------------------------
 # Static environment description
@@ -77,13 +77,32 @@ class EnvStatic:
     robot_dof_pos_stddev: float
     robot_dof_vel_stddev: float
     object_reset_type: str
+    goal_rotation_active: bool
+    goal_rate_magnitude: float
     termination_activate: bool
     termination_bonus: float
     position_tolerance: float
     orientation_tolerance: float
+    # the tolerance curriculum: a lerp from *_init to the final tolerance,
+    # driven by curriculum_level when success-gated, else by env-steps over
+    # tolerance_anneal_frames (0: off)
+    position_tolerance_init: float
+    orientation_tolerance_init: float
+    tolerance_anneal_frames: float
+    # the goal-orientation curriculum (difficulties 4-6): the swing of goal
+    # orientations scaled from ori_difficulty_init to 1, by the same level or
+    # by env-steps over ori_difficulty_anneal_frames (0: off)
+    ori_difficulty_init: float
+    ori_difficulty_anneal_frames: float
+    curriculum_success_gated: bool
     dones_mode: str
     control_decimation: int
     dt: float
+    dr_activate: bool
+    dr_ranges: Tuple[Tuple[str, float, float], ...]  # (name, lo, hi), configured
+    dr_pd_gain_scale: Tuple[float, float]
+    use_keypoint_obs: bool  # append 8 object + 8 goal cube corners to the obs
+    obs_noise_std: float  # in normalized obs units, policy obs only; 0: off
     reward_specs: Tuple[RewardTermSpec, ...]
     solver: SolverConfig
 
@@ -93,7 +112,7 @@ class EnvStatic:
 
     @property
     def obs_dim(self) -> int:
-        return 9 + 9 + 7 + 7 + self.action_dim
+        return 9 + 9 + 7 + 7 + self.action_dim + (48 if self.use_keypoint_obs else 0)
 
     @property
     def state_dim(self) -> int:
@@ -126,6 +145,14 @@ class EnvParams:
     object_radius_3d: torch.Tensor  # ()
     object_size_z: torch.Tensor  # ()
     scene_base: SceneParams  # unbatched template
+    # success-gated curriculum level in [0, 1], moved by the runner's
+    # controller; read only when static.curriculum_success_gated
+    curriculum_level: torch.Tensor  # ()
+
+    def with_curriculum_level(self, level: float) -> "EnvParams":
+        like = self.dof_default_pos
+        return dataclasses.replace(self, curriculum_level=torch.tensor(
+            float(level), device=like.device, dtype=like.dtype))
 
 
 @dataclasses.dataclass
@@ -166,18 +193,8 @@ def build_static(config: dict) -> EnvStatic:
     rs = config["reset_distribution"]
     term = config["termination_conditions"]["success"]
     sim = config["sim"]
-    unported = {
-        "domain_randomization": bool(
-            config.get("domain_randomization", {}).get("activate", False)),
-        "goal rotation": bool(config["goal_movement"]["rotation"]["activate"]),
-        "keypoint observations": bool(config.get("use_keypoint_obs", False)),
-        "observation noise": float(config.get("obs_noise_std", 0.0)) > 0.0,
-        "the goal curriculum": bool(config.get("goal_curriculum", {})),
-        "tolerance annealing": float(term.get("tolerance_anneal_frames", 0.0)) > 0.0,
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(f"{name} {_NOT_PORTED}")
+    dr_cfg = config.get("domain_randomization", {})
+    curriculum = config.get("goal_curriculum", {})
     tpu_solver = str(sim["physx"].get("tpu_solver", "tgs"))
     if tpu_solver not in ("pgs", "tgs"):
         raise ValueError(
@@ -218,13 +235,29 @@ def build_static(config: dict) -> EnvStatic:
         robot_dof_pos_stddev=float(rs["robot_initial_state"]["dof_pos_stddev"]),
         robot_dof_vel_stddev=float(rs["robot_initial_state"]["dof_vel_stddev"]),
         object_reset_type=str(rs["object_initial_state"]["type"]),
+        goal_rotation_active=bool(config["goal_movement"]["rotation"]["activate"]),
+        goal_rate_magnitude=float(config["goal_movement"]["rotation"]["rate_magnitude"]),
         termination_activate=bool(term["activate"]),
         termination_bonus=float(term["bonus"]),
         position_tolerance=float(term["position_tolerance"]),
         orientation_tolerance=float(term["orientation_tolerance"]),
+        position_tolerance_init=float(
+            term.get("position_tolerance_init", term["position_tolerance"])),
+        orientation_tolerance_init=float(
+            term.get("orientation_tolerance_init", term["orientation_tolerance"])),
+        tolerance_anneal_frames=float(term.get("tolerance_anneal_frames", 0.0)),
+        ori_difficulty_init=float(curriculum.get("orientation_difficulty_init", 1.0)),
+        ori_difficulty_anneal_frames=float(curriculum.get("anneal_frames", 0.0)),
+        curriculum_success_gated=bool(curriculum.get("success_gated", False)),
         dones_mode=str(config.get("dones_mode", "and")),
         control_decimation=int(config["control_decimation"]),
         dt=float(sim["dt"]),
+        dr_activate=bool(dr_cfg.get("activate", False)),
+        dr_ranges=tuple((k, float(dr_cfg[k][0]), float(dr_cfg[k][1]))
+                        for k in dr.DR_DEFAULTS if k in dr_cfg),
+        dr_pd_gain_scale=tuple(float(x) for x in dr_cfg.get("pd_gain_scale", (1.0, 1.0))),
+        use_keypoint_obs=bool(config.get("use_keypoint_obs", False)),
+        obs_noise_std=float(config.get("obs_noise_std", 0.0)),
         reward_specs=tuple(specs[name] for name in sorted(specs)),
         solver=solver,
     )
@@ -274,6 +307,13 @@ def build_params(static: EnvStatic, object_dims, arena: Optional[dict] = None,
     obs_high = np.concatenate(
         [jpos_high, jvel_high, obj_pos_high, ori_high, obj_pos_high, ori_high, obs_act_high]
     )
+    if static.use_keypoint_obs:
+        # 8 object + 8 goal corners: position limits widened by the half-diagonal
+        pad = float(object_dims.radius_3d)
+        kp_low = np.tile(obj_pos_low - pad, 8).astype(np.float32)
+        kp_high = np.tile(obj_pos_high + pad, 8).astype(np.float32)
+        obs_low = np.concatenate([obs_low, kp_low, kp_low])
+        obs_high = np.concatenate([obs_high, kp_high, kp_high])
     if static.asymmetric_obs:
         ftip_low = np.concatenate(
             [np.array([-0.4, -0.4, 0.0]), ori_low, np.full(6, -0.2)]
@@ -327,6 +367,7 @@ def build_params(static: EnvStatic, object_dims, arena: Optional[dict] = None,
             ),
             arena or {},
         ),
+        curriculum_level=torch.zeros((), device=device, dtype=dtype),
     )
 
 
@@ -363,7 +404,10 @@ def _scene_with_arena(scene: SceneParams, arena: dict) -> SceneParams:
 # ---------------------------------------------------------------------------
 # Draws and samplers. One reset draws one (n, 25) uniform block:
 #   0:18 robot noise | 18:21 object r, theta, yaw | 21:25 goal r, theta, z, yaw
-# and, for difficulties 4-6, one (n, 8) normal block (0:4 goal orientation).
+# and, for difficulties 4-6 or goal rotation, one (n, 8) normal block
+#   0:4 goal orientation | 4:8 goal angular velocity.
+# A full reset with DR on adds the scene (n, 7) and PD-gain (n, 2) uniform
+# blocks of ``dr``; observation noise is an (n, obs_dim) normal block.
 # ---------------------------------------------------------------------------
 
 N_UNIFORM = 25
@@ -371,7 +415,7 @@ N_NORMAL = 8
 
 
 def needs_normals(static: EnvStatic) -> bool:
-    return static.task_difficulty in (4, 5, 6)
+    return static.task_difficulty in (4, 5, 6) or static.goal_rotation_active
 
 
 def draw_reset_randoms(static: EnvStatic, generator: torch.Generator, n: int, device,
@@ -382,6 +426,30 @@ def draw_reset_randoms(static: EnvStatic, generator: torch.Generator, n: int, de
         return u, torch.randn((n, N_NORMAL), generator=generator, device=device,
                               dtype=dtype)
     return u, None
+
+
+def _draw_extras(static: EnvStatic, generator: torch.Generator, n: int, device, dtype):
+    """(DR blocks or None, observation noise or None)."""
+    blocks = dr.draw_uniforms(generator, n, device, dtype) if static.dr_activate else None
+    noise = (torch.randn((n, static.obs_dim), generator=generator, device=device, dtype=dtype)
+             if static.obs_noise_std > 0.0 else None)
+    return blocks, noise
+
+
+def draw_init_randoms(static: EnvStatic, generator: torch.Generator, n: int, device,
+                      dtype=torch.float32):
+    """The draws of one ``env_reset``: (u, norm, dr, obs_noise)."""
+    return (draw_reset_randoms(static, generator, n, device, dtype)
+            + _draw_extras(static, generator, n, device, dtype))
+
+
+def draw_step_randoms(static: EnvStatic, generator: torch.Generator, n: int, device,
+                      dtype=torch.float32):
+    """The draws of one ``env_step``: (u_reset, norm_reset, u_goal, norm_goal,
+    dr, obs_noise)."""
+    return (draw_reset_randoms(static, generator, n, device, dtype)
+            + draw_reset_randoms(static, generator, n, device, dtype)
+            + _draw_extras(static, generator, n, device, dtype))
 
 
 def _sample_robot_state(static: EnvStatic, params: EnvParams, u: torch.Tensor, n: int):
@@ -415,8 +483,25 @@ def _sample_object_state(static: EnvStatic, params: EnvParams, u: torch.Tensor, 
     return pos, tuple(quat[:, i] for i in range(4))
 
 
-def _sample_goal_poses(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm, n: int):
-    """Per-difficulty goal sampling; returns (pose_cm (7, N), angvel_cm (3, N))."""
+def _ori_difficulty_frac(static: EnvStatic, params: EnvParams, frames: int):
+    """The goal-orientation curriculum's swing fraction in [init, 1], from the
+    success-gated level or the frame ramp; None when the curriculum is off.
+    The ramp is float32, as in the reference."""
+    if static.curriculum_success_gated:
+        t = torch.clamp(params.curriculum_level, 0.0, 1.0)
+    elif static.ori_difficulty_anneal_frames > 0.0:
+        env_steps = (torch.tensor(float(frames), device=params.curriculum_level.device)
+                     * static.num_envs)
+        t = torch.clamp(env_steps / static.ori_difficulty_anneal_frames, 0.0, 1.0)
+    else:
+        return None
+    return static.ori_difficulty_init + t * (1.0 - static.ori_difficulty_init)
+
+
+def _sample_goal_poses(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm, n: int,
+                       ori_frac=None):
+    """Per-difficulty goal sampling; returns (pose_cm (7, N), angvel_cm (3, N)).
+    ``ori_frac`` scales the swing of the goal orientations of difficulties 4-6."""
     d = static.task_difficulty
     u_xy = u[:, 21:23]
     u_z = u[:, 23]
@@ -452,8 +537,15 @@ def _sample_goal_poses(static: EnvStatic, params: EnvParams, u: torch.Tensor, no
         ori = sampling.random_orientation_from_normal(norm[:, 0:4])
     else:
         raise ValueError(f"Invalid difficulty index for task: {d}.")
+    if ori_frac is not None and d in (4, 5, 6):
+        ori = sampling.scale_orientation_swing(ori, ori_frac)
     pose_cm = torch.stack([x, y, z, ori[:, 0], ori[:, 1], ori[:, 2], ori[:, 3]])
-    return pose_cm, torch.zeros((3, n), device=u.device, dtype=u.dtype)
+    if static.goal_rotation_active:
+        angvel_cm = sampling.random_angular_vel_from_normal(
+            norm[:, 4:8], static.goal_rate_magnitude).T
+    else:
+        angvel_cm = torch.zeros((3, n), device=u.device, dtype=u.dtype)
+    return pose_cm, angvel_cm
 
 
 # ---------------------------------------------------------------------------
@@ -525,13 +617,48 @@ def _object_components(physics: PhysicsState):
     )
 
 
-def _assemble_obs_raw(physics: PhysicsState, obj_pos, obj_quat, goal_pos, goal_quat,
+_KP_SIGNS = tuple((sx, sy, sz) for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+                  for sz in (-1.0, 1.0))
+
+
+def _cube_keypoint_cols(pos, quat, half):
+    """24 columns: the world positions of the 8 cube corners, corner-major,
+    from component tuples of (N,) columns."""
+    cols = []
+    for sx, sy, sz in _KP_SIGNS:
+        cx, cy, cz = quat_rotate_c(quat, (sx * half[0], sy * half[1], sz * half[2]))
+        cols.extend((pos[0] + cx, pos[1] + cy, pos[2] + cz))
+    return cols
+
+
+def _assemble_obs_raw(static: EnvStatic, scene: SceneParams, physics: PhysicsState,
+                      obj_pos, obj_quat, goal_pos, goal_quat,
                       action_buf: torch.Tensor) -> torch.Tensor:
-    """Unnormalized observation [q | qd | object pose | goal pose | action]."""
+    """Unnormalized observation [q | qd | object pose | goal pose | action
+    (| object keypoints | goal keypoints)], the keypoints from the per-env
+    (randomized) half extents of ``scene``."""
     pose_cols = list(obj_pos) + list(obj_quat) + list(goal_pos) + list(goal_quat)
-    return torch.cat(
-        [physics.q, physics.qd, torch.stack(pose_cols, dim=-1), action_buf], dim=-1
-    )
+    parts = [physics.q, physics.qd, torch.stack(pose_cols, dim=-1), action_buf]
+    if static.use_keypoint_obs:
+        half = tuple(scene.cube_half_extents[:, i] for i in range(3))
+        parts.append(torch.stack(_cube_keypoint_cols(obj_pos, obj_quat, half)
+                                 + _cube_keypoint_cols(goal_pos, goal_quat, half), dim=-1))
+    return torch.cat(parts, dim=-1)
+
+
+def _observe(static: EnvStatic, params: EnvParams, obs_raw: torch.Tensor, noise):
+    """The policy observation: normalized when configured, plus Gaussian
+    noise of ``obs_noise_std`` normalized units from the draws ``noise``."""
+    obs = (scale_transform(obs_raw, params.obs_scale_low, params.obs_scale_high)
+           if static.normalize_obs else obs_raw)
+    if static.obs_noise_std > 0.0:
+        if noise is None:
+            raise ValueError("obs_noise_std > 0 needs the observation-noise draws")
+        noise = static.obs_noise_std * noise
+        if not static.normalize_obs:
+            noise = noise * (params.obs_scale_high - params.obs_scale_low) * 0.5
+        obs = obs + noise
+    return obs
 
 
 def _fill_states(static: EnvStatic, params: EnvParams, obs_raw: torch.Tensor,
@@ -567,13 +694,15 @@ def _fill_states(static: EnvStatic, params: EnvParams, obs_raw: torch.Tensor,
 
 
 def _masked_full_reset(static: EnvStatic, params: EnvParams, state: EnvState,
-                       mask: torch.Tensor, u: torch.Tensor, norm) -> EnvState:
+                       mask: torch.Tensor, u: torch.Tensor, norm, dr_blocks=None) -> EnvState:
     """Apply a full reset to the envs selected by ``mask`` (N,), from the
-    draws ``u`` (n, 25) and ``norm`` (n, 8) or None."""
+    draws ``u`` (n, 25), ``norm`` (n, 8) or None and, with DR on,
+    ``dr_blocks`` = (scene (n, 7), PD gains (n, 2))."""
     n = static.num_envs
     q_s, qd_s = _sample_robot_state(static, params, u, n)
     obj_pos_s, obj_quat_s = _sample_object_state(static, params, u, n)
-    goal_cm_s, angvel_cm_s = _sample_goal_poses(static, params, u, norm, n)
+    goal_cm_s, angvel_cm_s = _sample_goal_poses(
+        static, params, u, norm, n, _ori_difficulty_frac(static, params, state.frames))
 
     m1 = mask[:, None]
     mrow = mask[None, :]
@@ -596,8 +725,22 @@ def _masked_full_reset(static: EnvStatic, params: EnvParams, state: EnvState,
         obj_posquat_prev_cm = torch.where(
             mrow, torch.stack(obj_pos_s + obj_quat_s), obj_posquat_prev_cm
         )
+    scene, pd_scale = state.scene, state.pd_scale
+    if static.dr_activate:
+        if dr_blocks is None:
+            raise ValueError("domain randomization is on: a full reset needs the DR draws")
+        u_scene, u_pd = dr_blocks
+        drawn = dr.sample_scene_params_from_uniform(
+            u_scene, params.scene_base, {k: (lo, hi) for k, lo, hi in static.dr_ranges})
+        scene = SceneParams(**{
+            k: torch.where(mask.reshape((n,) + (1,) * (v.dim() - 1)), v, getattr(scene, k))
+            for k, v in drawn.fields().items()})
+        pd_scale = torch.where(
+            m1, dr.sample_pd_scale_from_uniform(u_pd, static.dr_pd_gain_scale), pd_scale)
     return state.replace(
         physics=physics,
+        scene=scene,
+        pd_scale=pd_scale,
         goal_pose_cm=torch.where(mrow, goal_cm_s, state.goal_pose_cm),
         goal_angvel_cm=torch.where(mrow, angvel_cm_s, state.goal_angvel_cm),
         obj_posquat_prev_cm=obj_posquat_prev_cm,
@@ -609,7 +752,9 @@ def _masked_full_reset(static: EnvStatic, params: EnvParams, state: EnvState,
 
 def _masked_goal_reset(static: EnvStatic, params: EnvParams, state: EnvState,
                        mask: torch.Tensor, u: torch.Tensor, norm) -> EnvState:
-    goal_cm_s, angvel_cm_s = _sample_goal_poses(static, params, u, norm, static.num_envs)
+    goal_cm_s, angvel_cm_s = _sample_goal_poses(
+        static, params, u, norm, static.num_envs,
+        _ori_difficulty_frac(static, params, state.frames))
     mrow = mask[None, :]
     return state.replace(
         goal_pose_cm=torch.where(mrow, goal_cm_s, state.goal_pose_cm),
@@ -619,19 +764,43 @@ def _masked_goal_reset(static: EnvStatic, params: EnvParams, state: EnvState,
 
 
 def _check_termination(static: EnvStatic, obj_pos, obj_quat, goal_pos, goal_quat,
-                       reward, goal_reset_buf, successes, info):
-    """Success termination (+bonus) on the position / orientation tolerances."""
+                       reward, goal_reset_buf, successes, info, env_steps_count,
+                       curriculum_level):
+    """Success termination (+bonus) on the position / orientation tolerances.
+    Under the tolerance curriculum each tolerance is the lerp from its
+    ``*_init`` value to its final value at the success-gated
+    ``curriculum_level``, or at env-steps / ``tolerance_anneal_frames``."""
+    pos_tol, ori_tol = static.position_tolerance, static.orientation_tolerance
+    if static.curriculum_success_gated:
+        frac = torch.clamp(curriculum_level, 0.0, 1.0)
+    elif static.tolerance_anneal_frames > 0.0:
+        frac = torch.clamp(env_steps_count / static.tolerance_anneal_frames, 0.0, 1.0)
+    else:
+        frac = None
+    if frac is not None:
+        pos_tol = static.position_tolerance_init + frac * (
+            static.position_tolerance - static.position_tolerance_init)
+        ori_tol = static.orientation_tolerance_init + frac * (
+            static.orientation_tolerance - static.orientation_tolerance_init)
+        info["env/position_tolerance"] = pos_tol
+        info["env/orientation_tolerance"] = ori_tol
     dx = goal_pos[0] - obj_pos[0]
     dy = goal_pos[1] - obj_pos[1]
     dz = goal_pos[2] - obj_pos[2]
     pos_dist = torch.sqrt(dx * dx + dy * dy + dz * dz)
-    goal_position_reset = pos_dist <= static.position_tolerance
+    goal_position_reset = pos_dist <= pos_tol
     info["env/current_position_goal/count"] = torch.sum(goal_position_reset)
     ori_dist = quat_diff_rad_c(obj_quat, goal_quat)
-    goal_orientation_reset = ori_dist <= static.orientation_tolerance
+    goal_orientation_reset = ori_dist <= ori_tol
     info["env/current_orientation_goal/count"] = torch.sum(goal_orientation_reset)
     info["env/pos_dist_mean"] = torch.mean(pos_dist)
     info["env/ori_dist_mean"] = torch.mean(ori_dist)
+    if static.curriculum_success_gated:
+        # the share of envs inside the FINAL tolerances, whatever the level
+        strict = ((pos_dist <= static.position_tolerance)
+                  & (ori_dist <= static.orientation_tolerance))
+        info["env/strict_success_frac"] = torch.mean(strict.to(torch.float32))
+        info["env/curriculum_level"] = frac
 
     if static.task_difficulty < 4:
         completion = goal_position_reset
@@ -654,8 +823,12 @@ def _check_termination(static: EnvStatic, obj_pos, obj_quat, goal_pos, goal_quat
 def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
              action: torch.Tensor, draws):
     """One MDP step for all envs. ``draws`` = (u_reset, norm_reset, u_goal,
-    norm_goal): the random blocks of this step's full and goal resets."""
-    u_reset, norm_reset, u_goal, norm_goal = draws
+    norm_goal, dr, obs_noise), ``draw_step_randoms``' layout: the random
+    blocks of this step's full and goal resets, then the DR blocks and the
+    observation noise, which may be left out (or None) where the config does
+    not use them."""
+    u_reset, norm_reset, u_goal, norm_goal, dr_blocks, obs_noise = (tuple(draws)
+                                                                    + (None, None))[:6]
     n = static.num_envs
     info: Dict[str, torch.Tensor] = {}
 
@@ -663,7 +836,8 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     reset_mask = state.reset_buf
     goal_mask = state.goal_reset_buf
     action_buf = torch.where(reset_mask[:, None], 0.0, action)
-    state = _masked_full_reset(static, params, state, reset_mask, u_reset, norm_reset)
+    state = _masked_full_reset(static, params, state, reset_mask, u_reset, norm_reset,
+                               dr_blocks)
     state = _masked_goal_reset(static, params, state, goal_mask, u_goal, norm_goal)
 
     tau = compute_torque(static, params, action_buf, state.physics.q, state.physics.qd,
@@ -674,7 +848,16 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     tip_wrench = tip_wrench6.reshape(n, 18)
     frames = state.frames + static.control_decimation
 
+    # goal rotation: the first-order update q' = normalize(q + h/2 * (w, 0) q)
     goal_pose_cm = state.goal_pose_cm
+    if static.goal_rotation_active:
+        h = static.dt * static.control_decimation
+        q = tuple(goal_pose_cm[3 + i] for i in range(4))
+        w = tuple(state.goal_angvel_cm[i] for i in range(3))
+        dq = _qmul_c(w + (torch.zeros_like(w[0]),), q)
+        nq = [q[i] + 0.5 * h * dq[i] for i in range(4)]
+        inv = torch.rsqrt(nq[0] ** 2 + nq[1] ** 2 + nq[2] ** 2 + nq[3] ** 2)
+        goal_pose_cm = torch.cat([goal_pose_cm[0:3], torch.stack([c * inv for c in nq])])
     goal_pos = tuple(goal_pose_cm[i] for i in range(3))
     goal_quat = tuple(goal_pose_cm[i] for i in range(3, 7))
 
@@ -700,7 +883,8 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
 
     reward, goal_reset_buf, successes, info = _check_termination(
         static, obj_pos, obj_quat, goal_pos, goal_quat, reward,
-        state.goal_reset_buf, state.successes, info,
+        state.goal_reset_buf, state.successes, info, env_steps_count,
+        params.curriculum_level,
     )
 
     steps_count = state.steps_count + 1
@@ -712,10 +896,10 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     else:
         dones = reset_buf | goal_reset_buf
 
-    obs_raw = _assemble_obs_raw(physics, obj_pos, obj_quat, goal_pos, goal_quat, action_buf)
-    obs = (scale_transform(obs_raw, params.obs_scale_low, params.obs_scale_high)
-           if static.normalize_obs else obs_raw)
-    states = _fill_states(static, params, obs_raw, obj_linvel, obj_angvel, tips, tau,
+    obs_raw = _assemble_obs_raw(static, state.scene, physics, obj_pos, obj_quat, goal_pos,
+                                goal_quat, action_buf)
+    obs = _observe(static, params, obs_raw, obs_noise)
+    states =_fill_states(static, params, obs_raw, obj_linvel, obj_angvel, tips, tau,
                           tip_wrench)
 
     new_state = state.replace(
@@ -763,14 +947,17 @@ def initial_state(static: EnvStatic, params: EnvParams) -> EnvState:
     )
 
 
-def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None):
-    """Full reset of all envs from the draws (u (n, 25), norm): reset, a
-    zero-action torque, ONE physics call, observations."""
+def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None,
+              dr_blocks=None, obs_noise=None):
+    """Full reset of all envs from the draws (``draw_init_randoms``' layout:
+    u (n, 25), norm, DR blocks, observation noise): reset, a zero-action
+    torque, ONE physics call, observations."""
     n = static.num_envs
     device = u.device
     state = initial_state(static, params)
     state = _masked_full_reset(
-        static, params, state, torch.ones(n, dtype=torch.bool, device=device), u, norm
+        static, params, state, torch.ones(n, dtype=torch.bool, device=device), u, norm,
+        dr_blocks,
     )
     tau = compute_torque(static, params, state.action_buf, state.physics.q,
                          state.physics.qd, state.pd_scale)
@@ -780,10 +967,9 @@ def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None):
     obj_pos, obj_quat, _, _ = _object_components(physics)
     goal_pos = tuple(state.goal_pose_cm[i] for i in range(3))
     goal_quat = tuple(state.goal_pose_cm[i] for i in range(3, 7))
-    obs = _assemble_obs_raw(physics, obj_pos, obj_quat, goal_pos, goal_quat,
-                            state.action_buf)
-    if static.normalize_obs:
-        obs = scale_transform(obs, params.obs_scale_low, params.obs_scale_high)
+    obs_raw = _assemble_obs_raw(static, state.scene, physics, obj_pos, obj_quat, goal_pos,
+                                goal_quat, state.action_buf)
+    obs = _observe(static, params, obs_raw, obs_noise)
     state = state.replace(
         physics=physics,
         applied_torque=tau,
@@ -833,6 +1019,8 @@ class TrifingerEnv(EnvBase):
             "robot_q": 9, "robot_u": 9, "object_q": 7, "object_q_des": 7,
             "command": self.static.action_dim,
         }
+        if self.static.use_keypoint_obs:
+            obs_spec.update(object_keypoints=24, goal_keypoints=24)
         action_spec = {"command": self.static.action_dim}
         state_spec = {
             **obs_spec, "object_u": 6, "fingertip_state": 39, "robot_a": 9,
@@ -849,19 +1037,15 @@ class TrifingerEnv(EnvBase):
                 f"actions={self.static.action_dim}"
             )
 
-    def draw(self):
-        """One reset's random blocks from the env's generator."""
-        return draw_reset_randoms(self.static, self.generator, self.static.num_envs,
-                                  self.device, self.dtype)
-
     def reset(self):
-        self._state, obs = env_reset(self.static, self.params, *self.draw())
+        self._state, obs = env_reset(self.static, self.params, *draw_init_randoms(
+            self.static, self.generator, self.static.num_envs, self.device, self.dtype))
         self._last = (obs, None, None, None, {})
         return obs
 
     def step(self, action, draws=None):
-        """One step; ``draws`` (u_reset, norm_reset, u_goal, norm_goal) are
-        drawn from the env's generator unless given."""
+        """One step; ``draws`` (``draw_step_randoms``' layout) are drawn from
+        the env's generator unless given."""
         expected = (self.static.num_envs, self.static.action_dim)
         if tuple(action.shape) != expected:
             raise ValueError(
@@ -869,7 +1053,8 @@ class TrifingerEnv(EnvBase):
                 f" != {expected}."
             )
         if draws is None:
-            draws = self.draw() + self.draw()
+            draws = draw_step_randoms(self.static, self.generator, self.static.num_envs,
+                                      self.device, self.dtype)
         self._state, obs, states, reward, dones, info = env_step(
             self.static, self.params, self._state, action, draws
         )

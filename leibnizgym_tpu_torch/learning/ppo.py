@@ -37,7 +37,8 @@ from leibnizgym_tpu_torch.envs.trifinger.env import (
     EnvParams,
     EnvState,
     EnvStatic,
-    draw_reset_randoms,
+    draw_init_randoms,
+    draw_step_randoms,
     env_reset,
     env_step,
 )
@@ -310,8 +311,8 @@ def init_train_state(cfg: PPOConfig, static: EnvStatic, params: EnvParams,
     on the device and in the dtype of ``params``."""
     like = params.dof_default_pos
     generator = torch.Generator(device=like.device).manual_seed(seed)
-    u, norm = draw_reset_randoms(static, generator, static.num_envs, like.device, like.dtype)
-    env_state, obs = env_reset(static, params, u, norm)
+    env_state, obs = env_reset(static, params, *draw_init_randoms(
+        static, generator, static.num_envs, like.device, like.dtype))
     carry = RolloutCarry.start(env_state, obs, static.state_dim, cfg)
     actor_critic, central_value = make_networks(
         cfg, static, like.device, torch.Generator().manual_seed(seed))
@@ -378,8 +379,7 @@ def rollout(cfg: PPOConfig, static: EnvStatic, env_params: EnvParams,
         if env_draws is not None:
             draws = env_draws[t]
         else:
-            draws = (draw_reset_randoms(static, generator, n, obs.device, obs.dtype)
-                     + draw_reset_randoms(static, generator, n, obs.device, obs.dtype))
+            draws = draw_step_randoms(static, generator, n, obs.device, obs.dtype)
         env_state, next_obs, next_states, reward, done, info = env_step(
             static, env_params, env_state, clipped, draws
         )

@@ -16,13 +16,14 @@ widths). A checkpoint taken while processing an epoch (``best``, ``last``,
 Checkpoints are ``torch.save`` files (``nn/<name>``) of plain tensors and
 numbers: both state dicts, both optimizer states, ``lr``, ``epoch``,
 ``frame`` and, when the curriculum is success-gated, its level. The env
-state is not saved; envs reset on resume, as in the reference.
+state is not saved; envs reset on resume, as in the reference. ``restore``
+also takes the weights-only ``.npz`` policies of
+``leibnizgym_tpu_torch/resources/policies/``.
 """
 
 from __future__ import annotations
 
 import collections
-import dataclasses
 import os
 import threading
 import time
@@ -34,6 +35,7 @@ import torch
 import yaml
 
 from leibnizgym_tpu.utils import print_error, print_info, print_notify, print_warn
+from leibnizgym_tpu_torch.convert import checkpoint_from_npz
 from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
 from leibnizgym_tpu_torch.learning.ppo import (
     PPOConfig,
@@ -153,8 +155,7 @@ class Runner:
 
     def _set_curriculum_level(self, level: float):
         self._cur_level = float(np.clip(level, 0.0, 1.0))
-        self.env_params = dataclasses.replace(
-            self.env_params, curriculum_level=torch.tensor(self._cur_level, dtype=torch.float32))
+        self.env_params = self.env_params.with_curriculum_level(self._cur_level)
 
     # ------------------------------------------------------------------ setup
 
@@ -200,13 +201,18 @@ class Runner:
         return path
 
     def restore(self, path: str):
-        """Load a checkpoint. When its optimizer states do not match this
-        learner's structure, fall back loudly to the weights, ``lr``,
-        ``epoch`` and ``frame``, with fresh optimizers."""
+        """Load a checkpoint: a ``torch.save`` file of this runner, or a
+        weights-only ``.npz`` policy (``convert.checkpoint_from_npz``). When
+        its optimizer states do not match this learner's structure, fall back
+        loudly to the weights, ``lr`` (where it has one), ``epoch`` and
+        ``frame``, with fresh optimizers."""
         if self.ts is None:
             self.reset()
         ts = self.ts
-        payload = torch.load(path, map_location=self.device, weights_only=True)
+        if str(path).endswith(".npz"):
+            payload = checkpoint_from_npz(path, self.device)
+        else:
+            payload = torch.load(path, map_location=self.device, weights_only=True)
         ts.actor_critic.load_state_dict(payload["ac_state_dict"])
         if ts.central_value is not None:
             ts.central_value.load_state_dict(payload["cv_state_dict"])
@@ -222,7 +228,8 @@ class Runner:
             )
             ts.ac_opt, ts.cv_opt = make_optimizers(self.ppo_cfg, ts.actor_critic,
                                                    ts.central_value)
-        ts.lr = torch.as_tensor(payload["lr"], dtype=torch.float32, device=self.device)
+        if "lr" in payload:
+            ts.lr = torch.as_tensor(payload["lr"], dtype=torch.float32, device=self.device)
         ts.epoch = int(payload["epoch"])
         ts.frame = int(payload["frame"])
         if "curriculum_level" in payload:
@@ -408,8 +415,7 @@ class Runner:
         (level 1.0) unless ``curriculum_level`` overrides it."""
         if self._cur_gated:
             lvl = 1.0 if curriculum_level is None else float(curriculum_level)
-            self.env.params = dataclasses.replace(
-                self.env.params, curriculum_level=torch.tensor(lvl, dtype=torch.float32))
+            self.env.params = self.env.params.with_curriculum_level(lvl)
             print_info(f"play: curriculum level {lvl:.2f}")
         cfg = self.ppo_cfg
         actor_critic = self.ts.actor_critic

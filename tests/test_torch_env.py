@@ -141,12 +141,26 @@ def test_quat_diff_rad_c():
     assert max_diff(ref, port) < 1e-5  # asin near 1 magnifies an ulp of its argument
 
 
-def test_unported_config_raises():
-    for extra in ({"domain_randomization": {"activate": True}},
-                  {"goal_movement": {"rotation": {"activate": True}}},
-                  {"use_keypoint_obs": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tenv.TrifingerEnv(config=dict({"num_instances": 2}, **extra), verbose=False)
+@pytest.mark.parametrize("extra", [
+    {"domain_randomization": {"activate": True}},
+    {"goal_movement": {"rotation": {"activate": True}}},
+    {"use_keypoint_obs": True},
+    {"use_keypoint_obs": True, "command_mode": "position_impedance"},
+    {"obs_noise_std": 0.01, "goal_curriculum": {"success_gated": True}},
+], ids=["dr", "goal_rotation", "keypoints", "keypoints_impedance", "noise_curriculum"])
+def test_flagship_configs_build_with_reference_widths(extra):
+    """The flagship recipe's features build (they raised NotImplementedError
+    before the port had them) with the reference's obs and state widths."""
+    cfg = dict({"num_instances": 2, "asymmetric_obs": True}, **extra)
+    te = tenv.TrifingerEnv(config=cfg, verbose=False)
+    je = jenv.TrifingerEnv(config=dict(cfg, engine="soa"), verbose=False)
+    assert (te.static.obs_dim, te.static.state_dim) == (je.static.obs_dim, je.static.state_dim)
+    assert te.get_obs_dim() == je.get_obs_dim() and te.get_state_dim() == je.get_state_dim()
+    assert te.params.obs_scale_low.shape == je.params.obs_scale_low.shape
+    assert max_diff(je.params.obs_scale_low, te.params.obs_scale_low) == 0.0
+    assert max_diff(je.params.state_scale_high, te.params.state_scale_high) == 0.0
+    obs = te.reset()
+    assert obs.shape == (2, je.static.obs_dim) and bool(torch.isfinite(obs).all())
 
 
 def _jax_draws(key, n):

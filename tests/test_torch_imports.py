@@ -5,8 +5,9 @@ The machine the port runs on has no JAX, so every module of
 a CPU env step must run without it. A subprocess blocks ``jax``, ``flax``,
 ``optax`` and ``orbax`` with a ``sys.meta_path`` finder, imports every
 module of the port (the learner, runner, training entry and CLI among
-them) and ``chip_smoke.py``, steps a 2-env ``TrifingerEnv`` and trains a
-2-env ``Runner`` for one epoch.
+them) and ``chip_smoke.py``, steps a 2-env ``TrifingerEnv`` on D1 and on
+the D4 + DR preset, reads a shipped ``.npz`` policy and trains a 2-env
+``Runner`` for one epoch.
 """
 
 import os
@@ -57,8 +58,25 @@ assert obs.shape == (2, 41) and states.shape == (2, 113) and reward.shape == (2,
 assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(states).all())
 assert float(obs.abs().max()) <= 5.0 and float(states.abs().max()) <= 5.0
 for name in ("learning.ppo", "learning.runner", "learning.train", "scripts.train",
-             "wrappers.frame_stack", "convert"):
+             "wrappers.frame_stack", "convert", "dr", "scripts.eval_policy"):
     assert "leibnizgym_tpu_torch." + name in names, name
+
+# the D4 flagship preset (DR, keypoints, curriculum) steps, and a shipped
+# policy restores from its npz
+from leibnizgym_tpu_torch.config.presets import GYM_PRESETS
+import copy
+d4 = copy.deepcopy(GYM_PRESETS["trifinger_difficulty_4_curriculum_dr"])
+d4.pop("rlg_overrides")
+d4.update(num_instances=2, asymmetric_obs=True)
+d4["sim"].update(substeps=1, physx={"num_position_iterations": 2})
+env = TrifingerEnv(config=d4, verbose=False)
+obs = env.reset()
+obs, reward, dones, info = env.step(torch.zeros(2, 9))
+assert obs.shape == (2, 89) and env.get_state().shape == (2, 161)
+assert bool(torch.isfinite(obs).all()) and "env/curriculum_level" in info
+from leibnizgym_tpu_torch.convert import checkpoint_from_npz
+payload = checkpoint_from_npz("leibnizgym_tpu_torch/resources/policies/d4_best_curriculum.npz")
+assert payload["ac_state_dict"]["actor_0.weight"].shape == (400, 89)
 
 # one epoch of the training path: Runner, rollout, GAE, updates, checkpoint
 import tempfile

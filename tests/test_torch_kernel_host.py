@@ -95,6 +95,39 @@ def test_host_kernel_matches_plain(host_lib, case, shape):
     assert np.isfinite(out.numpy()).all() and float(imp.abs().max()) > 0.0
 
 
+@pytest.mark.parametrize("shape", ["box", "sphere"])
+@pytest.mark.parametrize("case", ["pgs_s2_i4", "tgs_s4_i8"])
+def test_host_kernel_matches_plain_on_dr_scenes(host_lib, case, shape):
+    """Full domain randomization as the env draws it: per-env cube size
+    (half extents) with inertia scaled by mass * size^2, link masses, one
+    friction scale on every pair, restitution up to 0.8; cone arena on even
+    envs."""
+    from leibnizgym_tpu_torch import dr as tdr
+    from leibnizgym_tpu_torch.ops.types import SceneParams
+
+    cfg = SolverConfig(object_shape=int(shape == "sphere"), **SOLVERS[case])
+    state, tau, _ = torch_inputs(random_physics(N, 31), scene_arrays(N, 32, shape=shape),
+                                 torch.float64)
+    base = SceneParams.default(object_shape=shape, dtype=torch.float64)
+    u = torch.as_tensor(np.random.default_rng(33).random((N, 7)))
+    scene = tdr.sample_scene_params_from_uniform(u, base)
+    scene = scene.replace(**{k: v.clone() for k, v in scene.fields().items()})
+    scene.wall_radius[::2] = tf_model.WALL_CONE_BASE_RADIUS
+    scene.wall_slope[::2] = tf_model.WALL_CONE_SLOPE
+    scene.wall_knee_z[::2] = tf_model.WALL_CONE_KNEE_Z
+    assert float(scene.cube_half_extents[:, 0].std()) > 0
+    s31, p40, t9 = pack_state(state), pack_params(scene, N), tau.T.contiguous()
+    ref, ref_imp = step_packed(s31, p40, t9, cfg, 0.02)
+    out = torch.empty_like(s31)
+    imp = torch.empty_like(ref_imp)
+    host_lib.leibniz_physics_step_host(
+        s31.data_ptr(), p40.data_ptr(), t9.data_ptr(), out.data_ptr(), imp.data_ptr(), N,
+        ctypes.byref(cuda_engine.kernel_consts(cfg, 0.02, Consts64)))
+    assert float((out - ref).abs().max()) < TOL
+    assert float((imp - ref_imp).abs().max()) < TOL
+    assert float(imp.abs().max()) > 0.0
+
+
 def test_kernel_consts_follow_the_robot_tables():
     cfg = SolverConfig(substeps=4, solver_iterations=8, solver_type=1)
     k = cuda_engine.kernel_consts(cfg, 0.02, Consts64)

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from leibnizgym_tpu_torch.config.presets import default_config, parse_cli, update_cfg
+from leibnizgym_tpu_torch.config.presets import GYM_PRESETS, default_config, parse_cli, update_cfg
 from leibnizgym_tpu_torch.learning import ppo as tppo
 from leibnizgym_tpu_torch.learning.runner import AverageMeter, Runner, fetch_metrics
 
@@ -67,6 +67,9 @@ class _StubParams:
     """EnvParams stand-in for the curriculum controller."""
 
     curriculum_level: float = 0.0
+
+    def with_curriculum_level(self, level):
+        return dataclasses.replace(self, curriculum_level=level)
 
 
 def _metrics(epoch, kl=0.01, ep_return=None, cur=None):
@@ -231,12 +234,13 @@ class TestCurriculumController:
 # ---------------------------------------------------------------------------
 
 
-def _real_runner(tmp_path, vanilla=False, **rlg):
-    cfg = parse_cli(["rlg=vanilla"]) if vanilla else default_config()
+def _real_runner(tmp_path, vanilla=False, gym=None, gym_changes=None, **rlg):
+    cfg = parse_cli((["rlg=vanilla"] if vanilla else []) + ([f"gym={gym}"] if gym else []))
     cfg["args"].update(num_envs=8, seed=0)
     cfg = update_cfg(cfg)
     cfg["gym"]["sim"]["substeps"] = 1
     cfg["gym"]["sim"]["physx"]["num_position_iterations"] = 2
+    cfg["gym"].update(gym_changes or {})
     cfg["rlg"]["params"]["config"].update(steps_num=2, mini_epochs=1, **rlg)
     if not vanilla:
         cfg["rlg"]["params"]["config"]["central_value_config"]["mini_epochs"] = 1
@@ -332,6 +336,62 @@ def test_vanilla_runner_trains_and_restores(tmp_path):
     for k, v in r.ts.actor_critic.state_dict().items():
         assert torch.equal(fresh.ts.actor_critic.state_dict()[k], v), k
     assert fresh.ts.ac_opt.count == r.ts.ac_opt.count
+
+
+D4_GATED = "trifinger_difficulty_4_curriculum"
+
+
+def test_curriculum_level_reaches_the_real_env(tmp_path):
+    """On a success-gated preset, a level change reaches the env's params as
+    a device tensor, and ``make_policy`` sets the play env to level 1.0. (The
+    port's EnvParams once lacked ``curriculum_level``, so both raised
+    TypeError from dataclasses.replace.)"""
+    r = _real_runner(tmp_path, gym=D4_GATED)
+    r.reset()
+    r._set_curriculum_level(0.3)
+    level = r.env_params.curriculum_level
+    assert torch.is_tensor(level) and level.dtype == torch.float32 and level.dim() == 0
+    assert abs(float(level) - 0.3) < 1e-7 and r._cur_level == 0.3
+    policy = r.make_policy()
+    assert float(r.env.params.curriculum_level) == 1.0
+    obs = r.wrap_env().reset()
+    assert obs.shape == (8, 89) and policy(obs).shape == (8, 9)
+    policy = r.make_policy(curriculum_level=0.5)
+    assert float(r.env.params.curriculum_level) == 0.5
+
+
+def test_curriculum_controller_on_the_real_env(tmp_path):
+    """The success-gated controller on the D4 env: with a threshold every
+    episode passes, the level rises by ``up_step`` per finished episode and
+    reaches the env's info; ``best_curriculum`` is saved with the level, and
+    a fresh Runner restores it into its env params."""
+    changes = {"episode_length": 4, "goal_curriculum": dict(
+        GYM_PRESETS[D4_GATED]["goal_curriculum"], up_threshold=-1.0, up_step=0.25,
+        window_samples=1)}
+    r = _real_runner(tmp_path, gym=D4_GATED, gym_changes=changes, host_pipeline_depth=1)
+    seen = []
+    inner = r._train_iter
+
+    def train_iter(cfg, static, env_params, ts):
+        metrics = inner(cfg, static, env_params, ts)
+        seen.append((float(env_params.curriculum_level), float(metrics["env/curriculum_level"])))
+        return metrics
+
+    r._train_iter = train_iter
+    r.train(max_epochs=6)
+    # 2-step epochs, 4-step episodes: an episode sample every second epoch
+    assert r._cur_level == 0.75
+    assert all(a == b for a, b in seen)  # the env read the level it was given
+    assert [a for a, _ in seen] == [0.0, 0.0, 0.25, 0.25, 0.5, 0.5]
+    best = os.path.join(r.nn_dir, "best_curriculum")
+    assert os.path.exists(best)
+    saved = torch.load(best, weights_only=True)["curriculum_level"]
+    assert 0.0 <= saved <= 0.75
+    assert torch.load(os.path.join(r.nn_dir, "final"), weights_only=True)["curriculum_level"] == 0.75
+
+    fresh = _real_runner(tmp_path / "fresh", gym=D4_GATED, gym_changes=changes)
+    fresh.restore(os.path.join(r.nn_dir, "final"))
+    assert fresh._cur_level == 0.75 and float(fresh.env_params.curriculum_level) == 0.75
 
 
 _STALL = r'''
