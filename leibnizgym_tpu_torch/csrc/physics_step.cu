@@ -1,49 +1,87 @@
-// TriFinger physics control step: one CUDA thread per env.
+// TriFinger physics control step on an H100: solver rows built once per
+// substep by a team of warps, kept in shared memory, swept by one lane per env.
 //
 // Replaces the TPU kernel leibnizgym_tpu/ops/pallas_engine.py::_kernel
 // (launched by physics_step_pallas), whose body is
 // leibnizgym_tpu/ops/engine_v2.py::_substep_fields. The plain PyTorch version
 // of the same step is leibnizgym_tpu_torch/ops/engine_v2.py; this file
-// follows it formula by formula, in the same order of operations.
+// computes what it computes, contact by contact and row by row in the same
+// order (groups A, B, C, F, D, E in each iteration, then the TGS mini-step).
 //
-// What bounds it on an H100: latency and registers, not bytes. An env reads
-// 31 + 40 + 9 floats and writes 31 + 18 (about 0.5 KB; 8192 envs move about
-// 4 MB), while each control step runs on the order of 10^5 dependent scalar
-// flops per env: FK, a 3x3 mass matrix and Cholesky per finger, up to 31
-// contacts, and 4 x 8 sequential Gauss-Seidel sweeps. The sweep carries 21
-// lambda groups (up to 104 multipliers) plus the frozen per-contact frames
-// and Jacobians, far more than the 255 registers a thread may hold.
+// What bounds it. One control step is ~2.9e5 elementwise operations per env
+// at the training setting (4 substeps x 8 TGS iterations, every contact gate
+// on; ops/cuda_engine.step_flops counts them from the plain version): at
+// 8192 envs ~2.4 GFLOP, 0.036 ms at the card's 67 TFLOP/s in float32. The
+// bytes (31 + 40 + 9 floats in, 31 + 18 out per env, 4.2 MB) take 1.3 us at
+// 3.35 TB/s. So the bound is operations, but the step cannot reach it: each
+// env is one Gauss-Seidel sweep, a sequential chain of row updates through
+// the cube's and fingers' velocities. 8192 envs give 256 warps of sweeping
+// lanes for 132 SMs, two per SM, so the time is one env's dependent chain.
+// The first version of this kernel re-derived every row's Jacobian inside the
+// sweep (~20-30 dependent ops per row) from per-contact records that spilled
+// to local memory (255 registers, 3.5 KB of spill loads per thread), and
+// built the rows with one thread per env (28.6% of its time at 8192 envs on
+// the D1 state, H100 80GB HBM3 at 700 W; chip_smoke.py phase 4).
 //
-// What the design does about that:
-//  - Component-major (C, N) layout at the boundary, so neighbouring threads
-//    read neighbouring addresses; state and params are loaded once, all
-//    substeps and solver iterations loop inside the kernel, results are
-//    stored once. The ragged edge is `if (env >= n) return;`.
-//  - Per-contact data lives in fixed-size per-thread arrays. What does not
-//    fit in registers spills to local memory, which stays in L1/L2 (about
-//    3.5 KB per env, under 30 MB at 8192 envs against a 50 MB L2). The
-//    register count and spill bytes of this version are in PERF.md.
-//  - Block size: 32 threads. At 8192 envs there are only 256 warps for 132
-//    SMs, so larger blocks leave SMs idle (128-thread blocks give 64 blocks);
-//    one-warp blocks spread the warps over every SM.
-//  - SolverConfig's solver type, object shape and enable_* gates are runtime
-//    flags in the constants struct: every thread takes the same branch.
-//    Robot constants and solver factors come from the wrapper, so
-//    leibnizgym_tpu/models/trifinger.py stays the one source of truth.
+// What this design does about it:
+//  - Rows built once per substep. Every row (a contact's normal, two
+//    tangents and, where it applies, its torsion) is stored with what stays
+//    frozen through the iterations: the cube direction d (linear part), the
+//    angular part k_w, the finger part k_q and 1/w. The sweep runs in
+//    mass-normalised velocities: the cube's angular velocity as
+//    y = diag(sqrt(I)) R^-1 w (R^-1, not R^T: R from a quaternion a few ulps
+//    off unit length is not exactly orthogonal) and each finger's joint
+//    velocity as yq = L^T qd (M = L L^T, the finger's Cholesky factor). In them the
+//    Jacobian and the response of a row are one vector:
+//      k_w = sqrt(I^-1) R^T (r x d)   (u_w = (r x d).w, dw = I_w^-1 (r x d) dl)
+//      k_q = -+ L^-1 J^T d            (u_q = -+(J^T d).qd, dqd = -+M^-1 J^T d dl)
+//    so a row update is u = d.v + k_w.y + k_q.yq (at most 9 products), the
+//    reference's normal_step / friction_step clamp (with 1/w stored, a
+//    multiply where the reference divides), and v += (dl / m) d,
+//    y += dl k_w, yq += dl k_q: at most 9 independent FMAs. Nothing of the
+//    contact geometry, the cube inertia or the finger mass matrices is
+//    evaluated inside the iteration loop.
+//  - Rows kept on chip. 882 floats per env: rows 824 (A 8 x 18, B 8 x 31,
+//    C 3 x 40, F 6 x 35, D 3 x 17, E 3 x 17, lambdas and TGS depths
+//    included), the state handed between warps 31, the fingers' normalised
+//    velocities and factors 27: 3,528 B. They live in shared memory laid out
+//    [field][env-in-block], so a warp's lanes read consecutive words (no
+//    bank conflicts) at offsets known when the kernel is compiled. The sweep
+//    loads a contact's whole record at the contact's start, so its later rows
+//    arrive ahead of their use and none is read on the chain twice; the
+//    velocities (3 + 3 + 9) and per-env constants stay in registers, with no
+//    spills (loading the next contact's record as well spilled and ran
+//    slower on the H100; PERF.md).
+//  - All 8192 envs in one wave. A block holds 32 envs (112,896 B of dynamic
+//    shared memory, set with cudaFuncSetAttribute since it is above 48 KB)
+//    and 4 warps, so an SM holds 2 blocks: 64 envs, 256 threads (255
+//    registers each fit the 64K register file). 8192 envs are 256 blocks:
+//    every env resident at once on 128+ SMs. leibniz_physics_step_occupancy
+//    reports the resident blocks per SM; chip_smoke.py checks them.
+//  - The build spread over a team. Per substep warp 0 builds the cube rows
+//    (groups A, B) and warps 1-3 each build one finger (FK, mass matrix and
+//    Cholesky, RNEA, free velocity) and its rows (groups C, F, D, E); a
+//    barrier; warp 0 sweeps and integrates; a barrier; warps 1-3 sum their
+//    finger's tip impulses while warp 0 builds the next substep's cube rows.
+//  - One launch per control step, as before: the rollout is launch-bound.
 //
-// Numerics: no fast math. nvcc contracts a*b+c into FMAs and the device
-// sinf/cosf differ from the host's by an ulp, so results differ from the
-// plain version in the last bits; the contact solve amplifies that (the
-// cube's inverse inertia is ~1.8e4). The tolerances are stated where the
-// kernel is compared with the plain version (chip_smoke.py,
-// tests/test_torch_cuda.py); tests/test_torch_kernel_host.py holds a float64
-// host build of this file to the plain version in float64.
+// Every per-env function is LG_HD over a storage pointer and a stride fixed
+// at compile time (Env<ST>): on the card ST is the envs per block (LG_EPB);
+// the same source compiles as C++ for the host (g++ -x c++
+// -DLG_REAL=double), where leibniz_physics_step_host runs the same phases
+// one after another with ST = 1. Only the thread mapping is device-only.
+//
+// Numerics: no fast math. The normalised velocities, the stored 1/w and the
+// row dot products associate sums differently from the plain version, and
+// nvcc contracts a*b+c into FMAs; the contact solve amplifies such
+// differences (the cube's inverse inertia is ~1.8e4). The float64 host build
+// is held to the plain version at 1e-11, measured 9.8e-14
+// (tests/test_torch_kernel_host.py); on the card the float32 kernel is held
+// to the plain version within chip_smoke.KERNEL_TOL.
 //
 // Build (route: nvcc into a shared library with a plain C entry point,
 // loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// The same file compiles as C++ for the host (g++ -x c++), where
-// leibniz_physics_step_host runs the identical per-env function on the CPU.
 
 #include <math.h>
 #include <stdint.h>
@@ -51,8 +89,10 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define LG_HD __host__ __device__ __forceinline__
+#define LG_HD_MEMBER __host__ __device__ __forceinline__
 #else
 #define LG_HD static inline
+#define LG_HD_MEMBER inline
 #endif
 
 // The working type. The GPU build uses float; a host build with
@@ -79,8 +119,11 @@ LG_HD double lg_cos(double x) { return cos(x); }
 
 #define LG_STATE_ROWS 31
 #define LG_PARAM_ROWS 40
-#define LG_WRENCH_ROWS 18
 #define LG_NUM_SAMPLES 2
+// envs per block (one warp of envs), and warps (roles) per block: 0 = cube
+// rows + sweep, 1-3 = one finger each
+#define LG_EPB 32
+#define LG_ROLES 4
 
 // Filled by the Python wrapper (ops/cuda_engine.py, _KernelConsts); field
 // order and types must match it exactly.
@@ -114,6 +157,44 @@ enum {
 };
 
 // ---------------------------------------------------------------------------
+// per-env storage: field f of an env at p[f * ST]
+// ---------------------------------------------------------------------------
+
+// Contact records, one after another per group; each record holds its rows
+// (A: k_w[3], 1/w; B: d[3], k_w[3], 1/w; C, F: d[3], k_w[3], k_q[3], 1/w;
+// D, E: k_q[3], 1/w), then torsion (k_w[3], 1/w) where it applies, the
+// target (PGS) or restitution target (TGS), the TGS depth and the lambdas.
+enum {
+  A_ROW = 4, A_TGT = 12, A_DEP, A_LN, A_L1, A_L2, A_LT, A_NF,
+  B_ROW = 7, B_KT = 21, B_IWT = 24, B_TGT, B_DEP, B_LN, B_L1, B_L2, B_LT, B_NF,
+  C_ROW = 10, C_KT = 30, C_IWT = 33, C_TGT, C_DEP, C_LN, C_L1, C_L2, C_LT, C_NF,
+  F_ROW = 10, F_TGT = 30, F_DEP, F_LN, F_L1, F_L2, F_NF,
+  D_ROW = 4, D_TGT = 12, D_DEP, D_LN, D_L1, D_L2, D_NF,
+  A_OFF = 0,
+  B_OFF = A_OFF + 8 * A_NF,
+  C_OFF = B_OFF + 8 * B_NF,
+  F_OFF = C_OFF + 3 * C_NF,
+  D_OFF = F_OFF + 3 * LG_NUM_SAMPLES * F_NF,
+  E_OFF = D_OFF + 3 * D_NF,
+  // the state at the start of the substep, in the packed state's row order
+  X_STATE = E_OFF + 3 * D_NF,
+  // per finger: yq[3], then l00, l10, l11, l20, l21, l22
+  X_FINGER = X_STATE + LG_STATE_ROWS,
+  LG_ENV_FLOATS = X_FINGER + 3 * 9
+};
+
+template <int ST>
+struct Env {
+  real* p;
+  LG_HD_MEMBER real& operator[](int f) const { return p[f * ST]; }
+};
+
+template <int NF, int ST>
+LG_HD void load_rec(const Env<ST>& S, int base, real (&r)[NF]) {
+  for (int k = 0; k < NF; ++k) r[k] = S[base + k];
+}
+
+// ---------------------------------------------------------------------------
 // vec3 / mat3 helpers (ops/soa.py; same evaluation order)
 // ---------------------------------------------------------------------------
 
@@ -134,6 +215,11 @@ LG_HD V3 matvec(const M3& m, const V3& v) {
             m.m[1][0] * v.x + m.m[1][1] * v.y + m.m[1][2] * v.z,
             m.m[2][0] * v.x + m.m[2][1] * v.y + m.m[2][2] * v.z);
 }
+LG_HD V3 matTvec(const M3& m, const V3& v) {
+  return mk(m.m[0][0] * v.x + m.m[1][0] * v.y + m.m[2][0] * v.z,
+            m.m[0][1] * v.x + m.m[1][1] * v.y + m.m[2][1] * v.z,
+            m.m[0][2] * v.x + m.m[1][2] * v.y + m.m[2][2] * v.z);
+}
 LG_HD M3 mul(const M3& a, const M3& b) {
   M3 r;
   for (int i = 0; i < 3; ++i)
@@ -145,6 +231,23 @@ LG_HD M3 transpose(const M3& a) {
   M3 r;
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) r.m[i][j] = a.m[j][i];
+  return r;
+}
+LG_HD M3 inverse(const M3& a) {
+  const real (*m)[3] = a.m;
+  M3 r;
+  r.m[0][0] = m[1][1] * m[2][2] - m[1][2] * m[2][1];
+  r.m[0][1] = m[0][2] * m[2][1] - m[0][1] * m[2][2];
+  r.m[0][2] = m[0][1] * m[1][2] - m[0][2] * m[1][1];
+  r.m[1][0] = m[1][2] * m[2][0] - m[1][0] * m[2][2];
+  r.m[1][1] = m[0][0] * m[2][2] - m[0][2] * m[2][0];
+  r.m[1][2] = m[0][2] * m[1][0] - m[0][0] * m[1][2];
+  r.m[2][0] = m[1][0] * m[2][1] - m[1][1] * m[2][0];
+  r.m[2][1] = m[0][1] * m[2][0] - m[0][0] * m[2][1];
+  r.m[2][2] = m[0][0] * m[1][1] - m[0][1] * m[1][0];
+  const real inv_det = R(1.) / (m[0][0] * r.m[0][0] + m[0][1] * r.m[1][0] + m[0][2] * r.m[2][0]);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) r.m[i][j] = r.m[i][j] * inv_det;
   return r;
 }
 LG_HD M3 rot_x(real c, real s) {
@@ -201,15 +304,23 @@ LG_HD Chol chol3_factor(const M3& a) {
   return c;
 }
 
-LG_HD V3 chol3_solve(const Chol& c, const V3& b) {
+// L^-1 b (forward substitution)
+LG_HD V3 chol3_lower(const Chol& c, const V3& b) {
   real y0 = b.x / c.l00;
   real y1 = (b.y - c.l10 * y0) / c.l11;
   real y2 = (b.z - c.l20 * y0 - c.l21 * y1) / c.l22;
-  real x2 = y2 / c.l22;
-  real x1 = (y1 - c.l21 * x2) / c.l11;
-  real x0 = (y0 - c.l10 * x1 - c.l20 * x2) / c.l00;
+  return mk(y0, y1, y2);
+}
+
+// L^-T y (back substitution)
+LG_HD V3 chol3_upper(const Chol& c, const V3& y) {
+  real x2 = y.z / c.l22;
+  real x1 = (y.y - c.l21 * x2) / c.l11;
+  real x0 = (y.x - c.l10 * x1 - c.l20 * x2) / c.l00;
   return mk(x0, x1, x2);
 }
+
+LG_HD V3 chol3_solve(const Chol& c, const V3& b) { return chol3_upper(c, chol3_lower(c, b)); }
 
 // ---------------------------------------------------------------------------
 // per-finger dynamics (engine_v2._finger_dynamics)
@@ -224,6 +335,7 @@ struct PointData {
 
 struct FingerData {
   real qd[3];  // free velocity after the unconstrained update
+  Chol chol;   // of the finger's joint-space mass matrix
   PointData tip;
   PointData samples[LG_NUM_SAMPLES];
 };
@@ -249,13 +361,11 @@ LG_HD void point_contact_data(const LgConsts& K, int f, const V3& p_local,
                      comp(out.cols[2], k) * comp(out.minv_cols[mm], 2);
 }
 
-LG_HD void finger_dynamics(const LgConsts& K, int f, const real* q9, const real* qd9,
-                           const real* tau9, const V3& g, const real lms[3],
+// finger f's joint positions, velocities and torques in q, qd, tau
+LG_HD void finger_dynamics(const LgConsts& K, int f, const real q[3], const real qd[3],
+                           const real tau[3], const V3& g, const real lms[3],
                            const real jd[3], const real arm[3], bool with_samples,
                            FingerData& fd) {
-  const real q[3] = {q9[3 * f], q9[3 * f + 1], q9[3 * f + 2]};
-  const real qd[3] = {qd9[3 * f], qd9[3 * f + 1], qd9[3 * f + 2]};
-  const real tau[3] = {tau9[3 * f], tau9[3 * f + 1], tau9[3 * f + 2]};
 
   // ---- FK (finger-local frame)
   real c1 = lg_cos(q[0]), s1 = lg_sin(q[0]);
@@ -341,6 +451,7 @@ LG_HD void finger_dynamics(const LgConsts& K, int f, const real* q9, const real*
   fd.qd[0] = qd[0] + K.h * qdd.x;
   fd.qd[1] = qd[1] + K.h * qdd.y;
   fd.qd[2] = qd[2] + K.h * qdd.z;
+  fd.chol = chol;
 
   // ---- world-frame contact quantities
   point_contact_data(K, f, tip, axes, joints, chol, fd.tip);
@@ -355,13 +466,6 @@ LG_HD V3 point_vel(const V3 cols[3], const real qd[3]) {
   return mk(cols[0].x * qd[0] + cols[1].x * qd[1] + cols[2].x * qd[2],
             cols[0].y * qd[0] + cols[1].y * qd[1] + cols[2].y * qd[2],
             cols[0].z * qd[0] + cols[1].z * qd[1] + cols[2].z * qd[2]);
-}
-
-// qd += sign * M^-1 J^T p
-LG_HD void apply_impulse(const V3 minv_cols[3], real qd[3], const V3& p, real sign) {
-  for (int i = 0; i < 3; ++i)
-    qd[i] = qd[i] + sign * (comp(minv_cols[0], i) * p.x + comp(minv_cols[1], i) * p.y +
-                            comp(minv_cols[2], i) * p.z);
 }
 
 LG_HD void tangent_basis(const V3& n, V3& t1, V3& t2) {
@@ -396,68 +500,6 @@ LG_HD real contact_target(const LgConsts& K, real depth, real v_n0, real restitu
   if (capped) pen_bias = lg_fmin(pen_bias, K.finger_bias_cap);
   real bias = depth > R(0.) ? pen_bias : depth / K.h;
   return lg_fmax(bias, restitution_target(K, depth, v_n0, restitution, bounce_threshold));
-}
-
-// ---------------------------------------------------------------------------
-// contact records
-// ---------------------------------------------------------------------------
-
-struct CubeContact {  // groups A (ground) and B (wall)
-  V3 r, n, t1, t2;
-  real target, rest, depth, wn, wt1, wt2, ws;
-  real ln, l1, l2, lt, d;
-};
-
-struct ProbeContact {  // groups C (tip vs cube) and F (link sample vs cube)
-  V3 r, n, t1, t2, point;
-  real target, rest, depth, wn, wt1, wt2, ws;
-  real ln, l1, l2, lt, d;
-};
-
-struct FingerContact {  // groups D (tip vs ground) and E (tip vs wall)
-  V3 n, t1, t2;
-  real target, rest, depth, wn, wt1, wt2;
-  real ln, l1, l2, d;
-};
-
-struct Body {
-  real inv_mass;
-  M3 inv_i_w;
-};
-
-LG_HD V3 cube_point_vel(const V3& v, const V3& w, const V3& r) { return add(v, cross(w, r)); }
-
-LG_HD real k_cube_dir(const Body& b, const V3& r, const V3& d) {
-  V3 rxd = cross(r, d);
-  return b.inv_mass + dot(rxd, matvec(b.inv_i_w, rxd));
-}
-
-LG_HD void cube_apply(const Body& b, V3& v, V3& w, const V3& r, const V3& p) {
-  v = mk(v.x + b.inv_mass * p.x, v.y + b.inv_mass * p.y, v.z + b.inv_mass * p.z);
-  w = add(w, matvec(b.inv_i_w, cross(r, p)));
-}
-
-LG_HD void spin_apply(const Body& b, V3& w, const V3& n, real d_lam) {
-  w = add(w, matvec(b.inv_i_w, scale(n, d_lam)));
-}
-
-LG_HD real k_spin(const Body& b, const V3& n) {
-  return lg_fmax(dot(n, matvec(b.inv_i_w, n)), R(1e-6));
-}
-
-// normal_step: lam <- max(lam + (target - u_n) / w_n, 0); returns the change
-LG_HD real normal_step(real u_n, real target, real w_n, real& lam) {
-  real new_lam = lg_fmax(lam + (target - u_n) / w_n, R(0.));
-  real d = new_lam - lam;
-  lam = new_lam;
-  return d;
-}
-
-LG_HD real friction_step(real u_t, real w_t, real& lam_t, real mu_lam) {
-  real new_lam = clipf_(lam_t - u_t / w_t, -mu_lam, mu_lam);
-  real d = new_lam - lam_t;
-  lam_t = new_lam;
-  return d;
 }
 
 // probe sphere at `center` vs the object: closest point, frame, signed distance
@@ -510,89 +552,116 @@ LG_HD void sphere_vs_object(bool sphere_obj, const V3& pos, const M3& rot,
   tangent_basis(n_w, t1, t2);
 }
 
-// TGS velocity target for the remaining depth d at mini-step `it`
-LG_HD real tgs_target(const LgConsts& K, real d, real rest, int it, bool capped) {
+// TGS velocity target for the remaining depth d at a mini-step whose
+// remaining time h_rem = h - it * h_it enters as 1 / h_rem (one division per
+// iteration, where the reference divides per row)
+LG_HD real tgs_target(const LgConsts& K, real d, real rest, real inv_h_rem, bool capped) {
   real pen = K.tgs_over_h_it * lg_fmax(d - K.contact_slop, R(0.));
   if (capped) pen = lg_fmin(pen, K.finger_bias_cap);
-  real h_rem = K.h - (real)it * K.h_it;  // real, as the reference's traced loop index
-  real bias = d > R(0.) ? pen : d / h_rem;
+  real bias = d > R(0.) ? pen : d * inv_h_rem;
   return lg_fmax(bias, rest);
 }
 
-struct PhysState {
-  real q[9], qd[9];
+// normal_step: lam <- max(lam + (target - u_n) / w_n, 0), 1/w_n stored;
+// returns the change
+LG_HD real normal_step(real u_n, real target, real iw, real& lam) {
+  real new_lam = lg_fmax(lam + (target - u_n) * iw, R(0.));
+  real d = new_lam - lam;
+  lam = new_lam;
+  return d;
+}
+
+LG_HD real friction_step(real u_t, real iw, real& lam_t, real mu_lam) {
+  real new_lam = clipf_(lam_t - u_t * iw, -mu_lam, mu_lam);
+  real d = new_lam - lam_t;
+  lam_t = new_lam;
+  return d;
+}
+
+// ---------------------------------------------------------------------------
+// the cube at the start of a substep, as every role computes it
+// ---------------------------------------------------------------------------
+
+struct Cube {
   V3 pos;
   Quat quat;
-  V3 v, w;
+  M3 rot;
+  V3 v, w;          // free velocities
+  real inv_mass;
+  M3 inv_i_w;
+  V3 sq;            // sqrt of the principal inverse inertias
+  V3 half;
 };
 
-// ---------------------------------------------------------------------------
-// one substep (engine_v2._substep_fields); adds this substep's tip impulses
-// (force rows 0-8, torque rows 9-17) to imp_acc
-// ---------------------------------------------------------------------------
-
-LG_HD void substep(const LgConsts& K, PhysState& s, const real tau[9], const real* P,
-                   real imp_acc[LG_WRENCH_ROWS]) {
-  const bool sphere_obj = K.object_shape == 1;
-  const bool tgs = K.solver_type == 1;
-  const bool torsion = K.enable_torsion != 0;
+template <int ST>
+LG_HD void cube_start(const LgConsts& K, const Env<ST>& S, const real* P, Cube& c) {
   const V3 g = mk(P[P_GRAV], P[P_GRAV + 1], P[P_GRAV + 2]);
-  real lms[3], jd[3], arm[3];
-  for (int i = 0; i < 3; ++i) {
-    lms[i] = P[P_LINK_MASS + i] / K.base_masses[i];
-    jd[i] = P[P_JDAMP + i];
-    arm[i] = P[P_ARM + i];
-  }
-
-  // ---- fingers
-  FingerData fingers[3];
-  real qds[3][3];
-  for (int f = 0; f < 3; ++f) {
-    finger_dynamics(K, f, s.q, s.qd, tau, g, lms, jd, arm, K.enable_link_cube != 0,
-                    fingers[f]);
-    for (int j = 0; j < 3; ++j) qds[f][j] = fingers[f].qd[j];
-  }
-
-  // ---- cube free velocities
   real lin_damp = lg_fmax(R(1.) - P[P_LIN_DAMP] * K.h, R(0.));
   real ang_damp = lg_fmax(R(1.) - P[P_ANG_DAMP] * K.h, R(0.));
-  V3 v = mk(s.v.x * lin_damp, s.v.y * lin_damp, s.v.z * lin_damp);
-  v = mk(v.x + K.h * g.x, v.y + K.h * g.y, v.z + K.h * g.z);
-  V3 w = mk(s.w.x * ang_damp, s.w.y * ang_damp, s.w.z * ang_damp);
-
-  // ---- cube body quantities
-  const Quat quat = s.quat;
-  const M3 rot = quat_to_m3(quat);
-  const V3 pos = s.pos;
-  Body body;
-  body.inv_mass = R(1.) / P[P_CMASS];
+  const int X = X_STATE;
+  V3 v = mk(S[X + 25] * lin_damp, S[X + 26] * lin_damp, S[X + 27] * lin_damp);
+  c.v = mk(v.x + K.h * g.x, v.y + K.h * g.y, v.z + K.h * g.z);
+  c.w = mk(S[X + 28] * ang_damp, S[X + 29] * ang_damp, S[X + 30] * ang_damp);
+  c.pos = mk(S[X + 18], S[X + 19], S[X + 20]);
+  c.quat.x = S[X + 21]; c.quat.y = S[X + 22]; c.quat.z = S[X + 23]; c.quat.w = S[X + 24];
+  c.rot = quat_to_m3(c.quat);
+  c.inv_mass = R(1.) / P[P_CMASS];
   const real inv_i[3] = {R(1.) / P[P_INERTIA], R(1.) / P[P_INERTIA + 1], R(1.) / P[P_INERTIA + 2]};
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
-      body.inv_i_w.m[i][j] = rot.m[i][0] * inv_i[0] * rot.m[j][0] +
-                             rot.m[i][1] * inv_i[1] * rot.m[j][1] +
-                             rot.m[i][2] * inv_i[2] * rot.m[j][2];
-  const V3 half = mk(P[P_HALF], P[P_HALF + 1], P[P_HALF + 2]);
-  const real radius_o = half.x;
-  const real bounce = P[P_BOUNCE];
+      c.inv_i_w.m[i][j] = c.rot.m[i][0] * inv_i[0] * c.rot.m[j][0] +
+                          c.rot.m[i][1] * inv_i[1] * c.rot.m[j][1] +
+                          c.rot.m[i][2] * inv_i[2] * c.rot.m[j][2];
+  c.sq = mk(lg_sqrt(inv_i[0]), lg_sqrt(inv_i[1]), lg_sqrt(inv_i[2]));
+  c.half = mk(P[P_HALF], P[P_HALF + 1], P[P_HALF + 2]);
+}
 
-  // ---- object points: A vs ground, B vs wall
+LG_HD V3 cube_point_vel(const V3& v, const V3& w, const V3& r) { return add(v, cross(w, r)); }
+
+LG_HD real k_cube_dir(const Cube& c, const V3& r, const V3& d) {
+  V3 rxd = cross(r, d);
+  return c.inv_mass + dot(rxd, matvec(c.inv_i_w, rxd));
+}
+
+LG_HD real k_spin(const Cube& c, const V3& n) {
+  return lg_fmax(dot(n, matvec(c.inv_i_w, n)), R(1e-6));
+}
+
+// the cube's angular part of a row with angular Jacobian j: sqrt(I^-1) R^T j
+LG_HD V3 ang_row(const Cube& c, const V3& j) {
+  V3 b = matTvec(c.rot, j);
+  return mk(c.sq.x * b.x, c.sq.y * b.y, c.sq.z * b.z);
+}
+
+template <int ST>
+LG_HD void put3(const Env<ST>& S, int at, const V3& a) {
+  S[at] = a.x; S[at + 1] = a.y; S[at + 2] = a.z;
+}
+
+// ---------------------------------------------------------------------------
+// build, role 0: groups A (object points vs ground) and B (vs arena wall)
+// ---------------------------------------------------------------------------
+
+template <int ST>
+LG_HD void build_cube_rows(const LgConsts& K, const Env<ST>& S, const real* P, const Cube& c) {
+  const bool sphere_obj = K.object_shape == 1;
+  const bool tgs = K.solver_type == 1;
+  const real bounce = P[P_BOUNCE];
+  const real radius_o = c.half.x;
   V3 a_points[8];
   int n_a, n_b = 0;
-  CubeContact A[8], B[8];
-  V3 b_points[8];
+  V3 b_points[8], b_n[8];
   real b_depth[8];
-  V3 b_n[8];
   if (sphere_obj) {
     n_a = 1;
-    a_points[0] = mk(pos.x, pos.y, pos.z - radius_o);
+    a_points[0] = mk(c.pos.x, c.pos.y, c.pos.z - radius_o);
     if (K.enable_cube_wall) {
       real gap_c;
       V3 n_c;
-      wall_gap(P, pos.x, pos.y, pos.z, gap_c, n_c);
+      wall_gap(P, c.pos.x, c.pos.y, c.pos.z, gap_c, n_c);
       n_b = 1;
-      b_points[0] = mk(pos.x - n_c.x * radius_o, pos.y - n_c.y * radius_o,
-                       pos.z - n_c.z * radius_o);
+      b_points[0] = mk(c.pos.x - n_c.x * radius_o, c.pos.y - n_c.y * radius_o,
+                       c.pos.z - n_c.z * radius_o);
       b_depth[0] = radius_o - gap_c;
       b_n[0] = n_c;
     }
@@ -602,8 +671,8 @@ LG_HD void substep(const LgConsts& K, PhysState& s, const real tau[9], const rea
     for (int sx = -1; sx <= 1; sx += 2)
       for (int sy = -1; sy <= 1; sy += 2)
         for (int sz = -1; sz <= 1; sz += 2) {
-          V3 local = mk((real)sx * half.x, (real)sy * half.y, (real)sz * half.z);
-          a_points[ci] = add(pos, matvec(rot, local));
+          V3 local = mk((real)sx * c.half.x, (real)sy * c.half.y, (real)sz * c.half.z);
+          a_points[ci] = add(c.pos, matvec(c.rot, local));
           ++ci;
         }
     if (K.enable_cube_wall) {
@@ -617,420 +686,637 @@ LG_HD void substep(const LgConsts& K, PhysState& s, const real tau[9], const rea
     }
   }
 
-  const V3 ez = mk(R(0.), R(0.), R(1.));
-  const V3 a_t1 = mk(R(0.), R(1.), R(0.));
-  const V3 a_t2 = mk(-R(1.), R(0.), R(0.));
+  // A: directions n = +z, t1 = +y, t2 = -x (the reference's tangent basis)
+  const V3 dirs[3] = {mk(R(0.), R(0.), R(1.)), mk(R(0.), R(1.), R(0.)),
+                      mk(-R(1.), R(0.), R(0.))};
   for (int i = 0; i < n_a; ++i) {
-    CubeContact& ct = A[i];
-    ct.r = sub(a_points[i], pos);
-    ct.depth = -a_points[i].z;
-    real vn0 = cube_point_vel(v, w, ct.r).z;
-    ct.target = contact_target(K, ct.depth, vn0, P[P_REST_CUBE_GROUND], bounce, false);
-    ct.rest = restitution_target(K, ct.depth, vn0, P[P_REST_CUBE_GROUND], bounce);
-    ct.wn = k_cube_dir(body, ct.r, ez);
-    ct.wt1 = k_cube_dir(body, ct.r, a_t1);
-    ct.wt2 = k_cube_dir(body, ct.r, a_t2);
+    const int at = A_OFF + i * A_NF;
+    V3 r = sub(a_points[i], c.pos);
+    real depth = -a_points[i].z;
+    real vn0 = cube_point_vel(c.v, c.w, r).z;
+    real target = contact_target(K, depth, vn0, P[P_REST_CUBE_GROUND], bounce, false);
+    real rest = restitution_target(K, depth, vn0, P[P_REST_CUBE_GROUND], bounce);
+    for (int k = 0; k < 3; ++k) {
+      put3(S, at + k * A_ROW, ang_row(c, cross(r, dirs[k])));
+      S[at + k * A_ROW + 3] = R(1.) / k_cube_dir(c, r, dirs[k]);
+    }
+    S[at + A_TGT] = tgs ? rest : target;
+    S[at + A_DEP] = depth;
+    S[at + A_LN] = S[at + A_L1] = S[at + A_L2] = S[at + A_LT] = R(0.);
   }
   for (int i = 0; i < n_b; ++i) {
-    CubeContact& ct = B[i];
-    ct.r = sub(b_points[i], pos);
-    ct.n = b_n[i];
-    ct.depth = b_depth[i];
-    tangent_basis(ct.n, ct.t1, ct.t2);
-    V3 u = cube_point_vel(v, w, ct.r);
-    ct.target = contact_target(K, ct.depth, dot(u, ct.n), R(0.), bounce, false);
-    ct.rest = restitution_target(K, ct.depth, dot(u, ct.n), R(0.), bounce);
-    ct.wn = k_cube_dir(body, ct.r, ct.n);
-    ct.wt1 = k_cube_dir(body, ct.r, ct.t1);
-    ct.wt2 = k_cube_dir(body, ct.r, ct.t2);
+    const int at = B_OFF + i * B_NF;
+    V3 r = sub(b_points[i], c.pos);
+    V3 n = b_n[i], t1, t2;
+    tangent_basis(n, t1, t2);
+    V3 u = cube_point_vel(c.v, c.w, r);
+    // a zero restitution, as the reference passes jnp.asarray(0.0)
+    real target = contact_target(K, b_depth[i], dot(u, n), R(0.), bounce, false);
+    real rest = restitution_target(K, b_depth[i], dot(u, n), R(0.), bounce);
+    const V3 d3[3] = {n, t1, t2};
+    for (int k = 0; k < 3; ++k) {
+      put3(S, at + k * B_ROW, d3[k]);
+      put3(S, at + k * B_ROW + 3, ang_row(c, cross(r, d3[k])));
+      S[at + k * B_ROW + 6] = R(1.) / k_cube_dir(c, r, d3[k]);
+    }
+    if (K.enable_torsion) {
+      put3(S, at + B_KT, ang_row(c, n));
+      S[at + B_IWT] = R(1.) / k_spin(c, n);
+    }
+    S[at + B_TGT] = tgs ? rest : target;
+    S[at + B_DEP] = b_depth[i];
+    S[at + B_LN] = S[at + B_L1] = S[at + B_L2] = S[at + B_LT] = R(0.);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// build, roles 1-3: one finger's dynamics and its groups C, F, D, E
+// ---------------------------------------------------------------------------
+
+// what a finger's role keeps in registers for its tip impulses
+struct TipGeom {
+  V3 cn, ct1, ct2, arm_c;  // C: frame, contact point - tip
+  V3 arm_d;                // D: ground point - tip
+  V3 en, et1, et2, arm_e;  // E: frame, wall point - tip
+};
+
+// the finger part of a row: sign * L^-1 J^T d
+LG_HD V3 finger_row(const Chol& l, const V3 cols[3], const V3& d, real sign) {
+  V3 j = chol3_lower(l, mk(dot(cols[0], d), dot(cols[1], d), dot(cols[2], d)));
+  return scale(j, sign);
+}
+
+// the reference's J M^-1 J^T quadratic form d.(a d)
+LG_HD real a_form(const real a[3][3], const V3& d) {
+  M3 at;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) at.m[i][j] = a[i][j];
+  return dot(d, matvec(at, d));
+}
+
+// one probe (tip or link sample) vs the object: a C or F record at `at`
+template <int ST>
+LG_HD void probe_rows(const LgConsts& K, const Env<ST>& S, const real* P, const Cube& c,
+                      const PointData& pd, const Chol& l, const real qd[3], const V3& center,
+                      real radius, real restitution, int at, V3& r, V3& n, V3& t1, V3& t2,
+                      V3& point) {
+  const bool tgs = K.solver_type == 1;
+  real sdist;
+  sphere_vs_object(K.object_shape == 1, c.pos, c.rot, c.half, center, r, n, t1, t2, point,
+                   sdist);
+  real depth = radius - sdist;
+  V3 u = sub(cube_point_vel(c.v, c.w, r), point_vel(pd.cols, qd));
+  real un = dot(u, n);
+  real target = contact_target(K, depth, un, restitution, P[P_BOUNCE], false);
+  real rest = restitution_target(K, depth, un, restitution, P[P_BOUNCE]);
+  const V3 d3[3] = {n, t1, t2};
+  for (int k = 0; k < 3; ++k) {
+    put3(S, at + k * C_ROW, d3[k]);
+    put3(S, at + k * C_ROW + 3, ang_row(c, cross(r, d3[k])));
+    put3(S, at + k * C_ROW + 6, finger_row(l, pd.cols, d3[k], -R(1.)));
+    S[at + k * C_ROW + 9] = R(1.) / (k_cube_dir(c, r, d3[k]) + a_form(pd.a, d3[k]));
+  }
+  // C and F share the row layout; their target, depth and lambdas follow
+  const int tail = at + (at >= F_OFF ? F_TGT : C_TGT);
+  S[tail] = tgs ? rest : target;
+  S[tail + 1] = depth;
+}
+
+template <int ST>
+LG_HD void build_finger_rows(const LgConsts& K, const Env<ST>& S, const real* P,
+                             const real* tau, const Cube& c, int f, TipGeom& tg) {
+  const bool tgs = K.solver_type == 1;
+  const V3 g = mk(P[P_GRAV], P[P_GRAV + 1], P[P_GRAV + 2]);
+  real lms[3], jd[3], arm[3], q[3], qd[3], tau3[3];
+  for (int i = 0; i < 3; ++i) {
+    lms[i] = P[P_LINK_MASS + i] / K.base_masses[i];
+    jd[i] = P[P_JDAMP + i];
+    arm[i] = P[P_ARM + i];
+    q[i] = S[X_STATE + 3 * f + i];
+    qd[i] = S[X_STATE + 9 + 3 * f + i];
+    // selected, not indexed by f: tau stays in registers
+    tau3[i] = f == 0 ? tau[i] : (f == 1 ? tau[3 + i] : tau[6 + i]);
+  }
+  FingerData fd;
+  finger_dynamics(K, f, q, qd, tau3, g, lms, jd, arm, K.enable_link_cube != 0, fd);
+  const Chol& l = fd.chol;
+
+  // the sweep's normalised finger velocity yq = L^T qd and the factor
+  const int xf = X_FINGER + 9 * f;
+  S[xf] = l.l00 * fd.qd[0] + l.l10 * fd.qd[1] + l.l20 * fd.qd[2];
+  S[xf + 1] = l.l11 * fd.qd[1] + l.l21 * fd.qd[2];
+  S[xf + 2] = l.l22 * fd.qd[2];
+  S[xf + 3] = l.l00; S[xf + 4] = l.l10; S[xf + 5] = l.l11;
+  S[xf + 6] = l.l20; S[xf + 7] = l.l21; S[xf + 8] = l.l22;
+
+  // ---- group C: the tip sphere vs the object
+  const PointData& tp = fd.tip;
+  const V3 center = add(tp.pos_w, mk(R(0.), R(0.), K.tip_off_z));
+  {
+    const int at = C_OFF + f * C_NF;
+    V3 r, point;
+    probe_rows(K, S, P, c, tp, l, fd.qd, center, P[P_TIP_RADIUS], P[P_REST_TIP_CUBE], at, r,
+               tg.cn, tg.ct1, tg.ct2, point);
+    tg.arm_c = sub(point, tp.pos_w);
+    if (K.enable_torsion) {
+      put3(S, at + C_KT, ang_row(c, tg.cn));
+      S[at + C_IWT] = R(1.) / k_spin(c, tg.cn);
+    }
+    S[at + C_LN] = S[at + C_L1] = S[at + C_L2] = S[at + C_LT] = R(0.);
   }
 
-  // ---- group C: tip spheres vs object
-  ProbeContact C[3];
-  V3 tip_center[3];
-  for (int f = 0; f < 3; ++f) {
-    ProbeContact& ct = C[f];
-    const PointData& tp = fingers[f].tip;
-    tip_center[f] = add(tp.pos_w, mk(R(0.), R(0.), K.tip_off_z));
-    real sdist;
-    sphere_vs_object(sphere_obj, pos, rot, half, tip_center[f], ct.r, ct.n, ct.t1,
-                     ct.t2, ct.point, sdist);
-    ct.depth = P[P_TIP_RADIUS] - sdist;
-    V3 u = sub(cube_point_vel(v, w, ct.r), point_vel(tp.cols, qds[f]));
-    real un = dot(u, ct.n);
-    ct.target = contact_target(K, ct.depth, un, P[P_REST_TIP_CUBE], bounce, false);
-    ct.rest = restitution_target(K, ct.depth, un, P[P_REST_TIP_CUBE], bounce);
-    M3 at;
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) at.m[i][j] = tp.a[i][j];
-    ct.wn = k_cube_dir(body, ct.r, ct.n) + dot(ct.n, matvec(at, ct.n));
-    ct.wt1 = k_cube_dir(body, ct.r, ct.t1) + dot(ct.t1, matvec(at, ct.t1));
-    ct.wt2 = k_cube_dir(body, ct.r, ct.t2) + dot(ct.t2, matvec(at, ct.t2));
-  }
+  // ---- group F: the lower-link shaft samples vs the object (index f * S + s)
+  if (K.enable_link_cube)
+    for (int si = 0; si < LG_NUM_SAMPLES; ++si) {
+      const int at = F_OFF + (f * LG_NUM_SAMPLES + si) * F_NF;
+      const PointData& sp = fd.samples[si];
+      V3 r, n, t1, t2, point;
+      probe_rows(K, S, P, c, sp, l, fd.qd, sp.pos_w, K.sample_radius[si],
+                 P[P_REST_LINK_CUBE], at, r, n, t1, t2, point);
+      S[at + F_LN] = S[at + F_L1] = S[at + F_L2] = R(0.);
+    }
 
-  // ---- group F: lower-link shaft samples vs object (index f * S + s)
-  const int n_f = K.enable_link_cube ? 3 * LG_NUM_SAMPLES : 0;
-  ProbeContact F[3 * LG_NUM_SAMPLES];
-  for (int idx = 0; idx < n_f; ++idx) {
-    const int f = idx / LG_NUM_SAMPLES, si = idx % LG_NUM_SAMPLES;
-    const PointData& sp = fingers[f].samples[si];
-    ProbeContact& ct = F[idx];
-    real sdist;
-    sphere_vs_object(sphere_obj, pos, rot, half, sp.pos_w, ct.r, ct.n, ct.t1, ct.t2,
-                     ct.point, sdist);
-    ct.depth = K.sample_radius[si] - sdist;
-    V3 u = sub(cube_point_vel(v, w, ct.r), point_vel(sp.cols, qds[f]));
-    real un = dot(u, ct.n);
-    ct.target = contact_target(K, ct.depth, un, P[P_REST_LINK_CUBE], bounce, false);
-    ct.rest = restitution_target(K, ct.depth, un, P[P_REST_LINK_CUBE], bounce);
-    M3 at;
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) at.m[i][j] = sp.a[i][j];
-    ct.wn = k_cube_dir(body, ct.r, ct.n) + dot(ct.n, matvec(at, ct.n));
-    ct.wt1 = k_cube_dir(body, ct.r, ct.t1) + dot(ct.t1, matvec(at, ct.t1));
-    ct.wt2 = k_cube_dir(body, ct.r, ct.t2) + dot(ct.t2, matvec(at, ct.t2));
-  }
-
-  // ---- group D: tip spheres vs ground
-  const int n_d = K.enable_tip_ground ? 3 : 0;
-  FingerContact D[3];
-  for (int f = 0; f < n_d; ++f) {
-    FingerContact& ct = D[f];
-    const PointData& tp = fingers[f].tip;
-    ct.depth = P[P_TIP_RADIUS] - tip_center[f].z;
-    real uz = point_vel(tp.cols, qds[f]).z;
-    ct.target = contact_target(K, ct.depth, uz, P[P_REST_TIP_GROUND], bounce, true);
-    ct.rest = restitution_target(K, ct.depth, uz, P[P_REST_TIP_GROUND], bounce);
+  // ---- group D: the tip sphere vs the ground (rows z, x, y)
+  if (K.enable_tip_ground) {
+    const int at = D_OFF + f * D_NF;
+    real depth = P[P_TIP_RADIUS] - center.z;
+    real uz = point_vel(tp.cols, fd.qd).z;
+    real target = contact_target(K, depth, uz, P[P_REST_TIP_GROUND], P[P_BOUNCE], true);
+    real rest = restitution_target(K, depth, uz, P[P_REST_TIP_GROUND], P[P_BOUNCE]);
     // finger-only contact: J M^-1 J^T can be singular (floored at w_min)
-    ct.wn = lg_fmax(tp.a[2][2], K.w_min);
-    ct.wt1 = lg_fmax(tp.a[0][0], K.w_min);
-    ct.wt2 = lg_fmax(tp.a[1][1], K.w_min);
+    const real w3[3] = {lg_fmax(tp.a[2][2], K.w_min), lg_fmax(tp.a[0][0], K.w_min),
+                        lg_fmax(tp.a[1][1], K.w_min)};
+    const V3 d3[3] = {mk(R(0.), R(0.), R(1.)), mk(R(1.), R(0.), R(0.)),
+                      mk(R(0.), R(1.), R(0.))};
+    for (int k = 0; k < 3; ++k) {
+      put3(S, at + k * D_ROW, finger_row(l, tp.cols, d3[k], R(1.)));
+      S[at + k * D_ROW + 3] = R(1.) / w3[k];
+    }
+    S[at + D_TGT] = tgs ? rest : target;
+    S[at + D_DEP] = depth;
+    S[at + D_LN] = S[at + D_L1] = S[at + D_L2] = R(0.);
+    tg.arm_d = sub(mk(center.x, center.y, center.z - P[P_TIP_RADIUS]), tp.pos_w);
   }
 
-  // ---- group E: tip spheres vs arena wall
-  const int n_e = K.enable_tip_wall ? 3 : 0;
-  FingerContact E[3];
-  for (int f = 0; f < n_e; ++f) {
-    FingerContact& ct = E[f];
-    const PointData& tp = fingers[f].tip;
+  // ---- group E: the tip sphere vs the arena wall (same record layout as D)
+  if (K.enable_tip_wall) {
+    const int at = E_OFF + f * D_NF;
     real gap;
-    wall_gap(P, tip_center[f].x, tip_center[f].y, tip_center[f].z, gap, ct.n);
-    ct.depth = P[P_TIP_RADIUS] - gap;
-    tangent_basis(ct.n, ct.t1, ct.t2);
-    real un = dot(point_vel(tp.cols, qds[f]), ct.n);
-    ct.target = contact_target(K, ct.depth, un, P[P_REST_TIP_WALL], bounce, true);
-    ct.rest = restitution_target(K, ct.depth, un, P[P_REST_TIP_WALL], bounce);
-    M3 at;
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) at.m[i][j] = tp.a[i][j];
-    ct.wn = lg_fmax(dot(ct.n, matvec(at, ct.n)), K.w_min);
-    ct.wt1 = lg_fmax(dot(ct.t1, matvec(at, ct.t1)), K.w_min);
-    ct.wt2 = lg_fmax(dot(ct.t2, matvec(at, ct.t2)), K.w_min);
+    wall_gap(P, center.x, center.y, center.z, gap, tg.en);
+    real depth = P[P_TIP_RADIUS] - gap;
+    tangent_basis(tg.en, tg.et1, tg.et2);
+    real un = dot(point_vel(tp.cols, fd.qd), tg.en);
+    real target = contact_target(K, depth, un, P[P_REST_TIP_WALL], P[P_BOUNCE], true);
+    real rest = restitution_target(K, depth, un, P[P_REST_TIP_WALL], P[P_BOUNCE]);
+    const V3 d3[3] = {tg.en, tg.et1, tg.et2};
+    for (int k = 0; k < 3; ++k) {
+      put3(S, at + k * D_ROW, finger_row(l, tp.cols, d3[k], R(1.)));
+      S[at + k * D_ROW + 3] = R(1.) / lg_fmax(a_form(tp.a, d3[k]), K.w_min);
+    }
+    S[at + D_TGT] = tgs ? rest : target;
+    S[at + D_DEP] = depth;
+    S[at + D_LN] = S[at + D_L1] = S[at + D_L2] = R(0.);
+    tg.arm_e = sub(sub(center, scale(tg.en, P[P_TIP_RADIUS])), tp.pos_w);
   }
+}
 
-  // ---- torsional friction spin masses
-  const real a_ws = body.inv_i_w.m[2][2];
-  if (torsion) {
-    for (int i = 0; i < n_b; ++i) B[i].ws = k_spin(body, B[i].n);
-    for (int f = 0; f < 3; ++f) C[f].ws = k_spin(body, C[f].n);
-  }
-  const real mu_tor_r = P[P_MU_TORSION] * P[P_TORSION_R];
+// ---------------------------------------------------------------------------
+// sweep, role 0: the iterations over the stored rows, then the integration
+// ---------------------------------------------------------------------------
 
-  // ---- solver state: multipliers start at zero, TGS depths at the depths
-  for (int i = 0; i < n_a; ++i) { A[i].ln = A[i].l1 = A[i].l2 = A[i].lt = R(0.); A[i].d = A[i].depth; }
-  for (int i = 0; i < n_b; ++i) { B[i].ln = B[i].l1 = B[i].l2 = B[i].lt = R(0.); B[i].d = B[i].depth; }
-  for (int i = 0; i < 3; ++i) { C[i].ln = C[i].l1 = C[i].l2 = C[i].lt = R(0.); C[i].d = C[i].depth; }
-  for (int i = 0; i < n_f; ++i) { F[i].ln = F[i].l1 = F[i].l2 = F[i].lt = R(0.); F[i].d = F[i].depth; }
-  for (int i = 0; i < n_d; ++i) { D[i].ln = D[i].l1 = D[i].l2 = R(0.); D[i].d = D[i].depth; }
-  for (int i = 0; i < n_e; ++i) { E[i].ln = E[i].l1 = E[i].l2 = R(0.); E[i].d = E[i].depth; }
-  V3 p_pos = pos;
-  Quat p_quat = quat;
-  real p_q[9];
-  for (int i = 0; i < 9; ++i) p_q[i] = s.q[i];
+LG_HD real dot3(const real* k, const real* x) { return k[0] * x[0] + k[1] * x[1] + k[2] * x[2]; }
+LG_HD void axpy3(real a, const real* k, real* x) {
+  x[0] = x[0] + a * k[0];
+  x[1] = x[1] + a * k[1];
+  x[2] = x[2] + a * k[2];
+}
 
+struct Vel {
+  real v[3];      // cube linear velocity (world)
+  real y[3];      // cube angular velocity, diag(sqrt(I)) R^T w
+  real yq[3][3];  // finger joint velocities, L^T qd
+};
+
+// u of a cube-and-finger row (d, k_w, k_q at `r`) and its update
+LG_HD real u_cf(const real* r, const Vel& s, int f) {
+  return (dot3(r + 3, s.y) + dot3(r + 6, s.yq[f])) + dot3(r, s.v);
+}
+LG_HD void apply_cf(const real* r, real dl, real im, Vel& s, int f) {
+  axpy3(dl * im, r, s.v);
+  axpy3(dl, r + 3, s.y);
+  axpy3(dl, r + 6, s.yq[f]);
+}
+LG_HD real u_c(const real* r, const Vel& s) { return dot3(r + 3, s.y) + dot3(r, s.v); }
+LG_HD void apply_c(const real* r, real dl, real im, Vel& s) {
+  axpy3(dl * im, r, s.v);
+  axpy3(dl, r + 3, s.y);
+}
+
+LG_HD V3 world_w(const Cube& c, const real y[3]) {
+  return matvec(c.rot, mk(c.sq.x * y[0], c.sq.y * y[1], c.sq.z * y[2]));
+}
+
+LG_HD Chol finger_chol(const real* x) {
+  Chol l;
+  l.l00 = x[3]; l.l10 = x[4]; l.l11 = x[5]; l.l20 = x[6]; l.l21 = x[7]; l.l22 = x[8];
+  return l;
+}
+
+template <int ST>
+LG_HD void sweep_and_integrate(const LgConsts& K, const Env<ST>& S, const real* P,
+                               const Cube& c) {
+  const bool sphere_obj = K.object_shape == 1;
+  const bool tgs = K.solver_type == 1;
+  const bool torsion = K.enable_torsion != 0;
+  const int n_a = sphere_obj ? 1 : 8;
+  const int n_b = K.enable_cube_wall ? n_a : 0;
+  const int n_f = K.enable_link_cube ? 3 * LG_NUM_SAMPLES : 0;
+  const int n_d = K.enable_tip_ground ? 3 : 0;
+  const int n_e = K.enable_tip_wall ? 3 : 0;
+  const real im = c.inv_mass;
   const real mu_cg = P[P_MU_CUBE_GROUND], mu_cw = P[P_MU_CUBE_WALL];
   const real mu_tc = P[P_MU_TIP_CUBE], mu_lc = P[P_MU_LINK_CUBE];
   const real mu_tg = P[P_MU_TIP_GROUND], mu_tw = P[P_MU_TIP_WALL];
-  const V3 zv = mk(R(0.), R(0.), R(0.));
+  const real mu_tor_r = P[P_MU_TORSION] * P[P_TORSION_R];
+  // group A's torsion row: w.z, with the reference's unclamped inv_i_w[2][2]
+  const V3 kta3 = ang_row(c, mk(R(0.), R(0.), R(1.)));
+  const real kta[3] = {kta3.x, kta3.y, kta3.z};
+  const real iw_ta = R(1.) / c.inv_i_w.m[2][2];
+
+  Vel s;
+  s.v[0] = c.v.x; s.v[1] = c.v.y; s.v[2] = c.v.z;
+  {
+    // y solves R diag(sq) y = w: R from a quaternion a few ulps off unit
+    // length is not exactly orthogonal, so invert it rather than transpose
+    V3 b = matvec(inverse(c.rot), c.w);
+    s.y[0] = b.x / c.sq.x; s.y[1] = b.y / c.sq.y; s.y[2] = b.z / c.sq.z;
+  }
+  Chol lf[3];
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    for (int j = 0; j < 3; ++j) s.yq[f][j] = S[X_FINGER + 9 * f + j];
+    real x[9];
+    for (int j = 3; j < 9; ++j) x[j] = S[X_FINGER + 9 * f + j];
+    lf[f] = finger_chol(x);
+  }
+  V3 p_pos = c.pos;
+  Quat p_quat = c.quat;
+  real p_q[9];
+  for (int i = 0; i < 9; ++i) p_q[i] = S[X_STATE + i];
 
   for (int it = 0; it < K.solver_iterations; ++it) {
-    for (int i = 0; i < n_a; ++i) {
-      CubeContact& ct = A[i];
-      V3 u = cube_point_vel(v, w, ct.r);
-      real tgt = tgs ? tgs_target(K, ct.d, ct.rest, it, false) : ct.target;
-      real d_lam = normal_step(u.z, tgt, ct.wn, ct.ln);
-      cube_apply(body, v, w, ct.r, mk(R(0.), R(0.), d_lam));
-      real mu_l = mu_cg * ct.ln;
-      u = cube_point_vel(v, w, ct.r);
-      if (tgs) ct.d = ct.d - u.z * K.h_it;
-      d_lam = friction_step(u.y, ct.wt1, ct.l1, mu_l);
-      cube_apply(body, v, w, ct.r, mk(R(0.), d_lam, R(0.)));
-      u = cube_point_vel(v, w, ct.r);
-      d_lam = friction_step(-u.x, ct.wt2, ct.l2, mu_l);
-      cube_apply(body, v, w, ct.r, mk(-d_lam, R(0.), R(0.)));
-      if (torsion) {
-        d_lam = friction_step(w.z, a_ws, ct.lt, mu_tor_r * ct.ln);
-        spin_apply(body, w, ez, d_lam);
+    // real, as the reference's traced loop index
+    const real inv_h_rem = R(1.) / (K.h - (real)it * K.h_it);
+    // ---- A. Each contact's record is loaded at its start (see the note)
+    {
+      real cur[A_NF];
+      for (int i = 0; i < n_a; ++i) {
+        const int at = A_OFF + i * A_NF;
+        load_rec(S, at, cur);
+        real ln = cur[A_LN], l1 = cur[A_L1], l2 = cur[A_L2], lt = cur[A_LT], dep = cur[A_DEP];
+        real tgt = tgs ? tgs_target(K, dep, cur[A_TGT], inv_h_rem, false) : cur[A_TGT];
+        real dl = normal_step(s.v[2] + dot3(cur, s.y), tgt, cur[3], ln);
+        s.v[2] = s.v[2] + dl * im;
+        axpy3(dl, cur, s.y);
+        real mu_l = mu_cg * ln;
+        if (tgs) dep = dep - (s.v[2] + dot3(cur, s.y)) * K.h_it;
+        dl = friction_step(s.v[1] + dot3(cur + A_ROW, s.y), cur[A_ROW + 3], l1, mu_l);
+        s.v[1] = s.v[1] + dl * im;
+        axpy3(dl, cur + A_ROW, s.y);
+        dl = friction_step(-s.v[0] + dot3(cur + 2 * A_ROW, s.y), cur[2 * A_ROW + 3], l2, mu_l);
+        s.v[0] = s.v[0] - dl * im;
+        axpy3(dl, cur + 2 * A_ROW, s.y);
+        if (torsion) {
+          dl = friction_step(dot3(kta, s.y), iw_ta, lt, mu_tor_r * ln);
+          axpy3(dl, kta, s.y);
+        }
+        S[at + A_LN] = ln; S[at + A_L1] = l1; S[at + A_L2] = l2; S[at + A_LT] = lt;
+        S[at + A_DEP] = dep;
       }
     }
-
-    for (int i = 0; i < n_b; ++i) {
-      CubeContact& ct = B[i];
-      V3 u = cube_point_vel(v, w, ct.r);
-      real tgt = tgs ? tgs_target(K, ct.d, ct.rest, it, false) : ct.target;
-      real d_lam = normal_step(dot(u, ct.n), tgt, ct.wn, ct.ln);
-      cube_apply(body, v, w, ct.r, scale(ct.n, d_lam));
-      real mu_l = mu_cw * ct.ln;
-      u = cube_point_vel(v, w, ct.r);
-      if (tgs) ct.d = ct.d - dot(u, ct.n) * K.h_it;
-      d_lam = friction_step(dot(u, ct.t1), ct.wt1, ct.l1, mu_l);
-      cube_apply(body, v, w, ct.r, scale(ct.t1, d_lam));
-      u = cube_point_vel(v, w, ct.r);
-      d_lam = friction_step(dot(u, ct.t2), ct.wt2, ct.l2, mu_l);
-      cube_apply(body, v, w, ct.r, scale(ct.t2, d_lam));
-      if (torsion) {
-        d_lam = friction_step(dot(w, ct.n), ct.ws, ct.lt, mu_tor_r * ct.ln);
-        spin_apply(body, w, ct.n, d_lam);
+    // ---- B
+    if (n_b > 0) {
+      real cur[B_NF];
+      for (int i = 0; i < n_b; ++i) {
+        const int at = B_OFF + i * B_NF;
+        load_rec(S, at, cur);
+        real ln = cur[B_LN], l1 = cur[B_L1], l2 = cur[B_L2], lt = cur[B_LT], dep = cur[B_DEP];
+        real tgt = tgs ? tgs_target(K, dep, cur[B_TGT], inv_h_rem, false) : cur[B_TGT];
+        real dl = normal_step(u_c(cur, s), tgt, cur[6], ln);
+        apply_c(cur, dl, im, s);
+        real mu_l = mu_cw * ln;
+        if (tgs) dep = dep - u_c(cur, s) * K.h_it;
+        dl = friction_step(u_c(cur + B_ROW, s), cur[B_ROW + 6], l1, mu_l);
+        apply_c(cur + B_ROW, dl, im, s);
+        dl = friction_step(u_c(cur + 2 * B_ROW, s), cur[2 * B_ROW + 6], l2, mu_l);
+        apply_c(cur + 2 * B_ROW, dl, im, s);
+        if (torsion) {
+          dl = friction_step(dot3(cur + B_KT, s.y), cur[B_IWT], lt, mu_tor_r * ln);
+          axpy3(dl, cur + B_KT, s.y);
+        }
+        S[at + B_LN] = ln; S[at + B_L1] = l1; S[at + B_L2] = l2; S[at + B_LT] = lt;
+        S[at + B_DEP] = dep;
       }
     }
-
-    for (int f = 0; f < 3; ++f) {
-      ProbeContact& ct = C[f];
-      const PointData& tp = fingers[f].tip;
-      V3 u = sub(cube_point_vel(v, w, ct.r), point_vel(tp.cols, qds[f]));
-      real tgt = tgs ? tgs_target(K, ct.d, ct.rest, it, false) : ct.target;
-      real d_lam = normal_step(dot(u, ct.n), tgt, ct.wn, ct.ln);
-      V3 p = scale(ct.n, d_lam);
-      cube_apply(body, v, w, ct.r, p);
-      apply_impulse(tp.minv_cols, qds[f], p, -R(1.));
-      if (tgs) {
-        u = sub(cube_point_vel(v, w, ct.r), point_vel(tp.cols, qds[f]));
-        ct.d = ct.d - dot(u, ct.n) * K.h_it;
-      }
-      real mu_l = mu_tc * ct.ln;
-      for (int which = 0; which < 2; ++which) {
-        const V3& t_vec = which == 0 ? ct.t1 : ct.t2;
-        real w_t = which == 0 ? ct.wt1 : ct.wt2;
-        real& lam = which == 0 ? ct.l1 : ct.l2;
-        u = sub(cube_point_vel(v, w, ct.r), point_vel(tp.cols, qds[f]));
-        d_lam = friction_step(dot(u, t_vec), w_t, lam, mu_l);
-        p = scale(t_vec, d_lam);
-        cube_apply(body, v, w, ct.r, p);
-        apply_impulse(tp.minv_cols, qds[f], p, -R(1.));
-      }
-      if (torsion) {
-        d_lam = friction_step(dot(w, ct.n), ct.ws, ct.lt, mu_tor_r * ct.ln);
-        spin_apply(body, w, ct.n, d_lam);
+    // ---- C
+    {
+      real cur[C_NF];
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        const int at = C_OFF + f * C_NF;
+        load_rec(S, at, cur);
+        real ln = cur[C_LN], l1 = cur[C_L1], l2 = cur[C_L2], lt = cur[C_LT], dep = cur[C_DEP];
+        real tgt = tgs ? tgs_target(K, dep, cur[C_TGT], inv_h_rem, false) : cur[C_TGT];
+        real dl = normal_step(u_cf(cur, s, f), tgt, cur[9], ln);
+        apply_cf(cur, dl, im, s, f);
+        if (tgs) dep = dep - u_cf(cur, s, f) * K.h_it;
+        real mu_l = mu_tc * ln;
+        dl = friction_step(u_cf(cur + C_ROW, s, f), cur[C_ROW + 9], l1, mu_l);
+        apply_cf(cur + C_ROW, dl, im, s, f);
+        dl = friction_step(u_cf(cur + 2 * C_ROW, s, f), cur[2 * C_ROW + 9], l2, mu_l);
+        apply_cf(cur + 2 * C_ROW, dl, im, s, f);
+        if (torsion) {
+          dl = friction_step(dot3(cur + C_KT, s.y), cur[C_IWT], lt, mu_tor_r * ln);
+          axpy3(dl, cur + C_KT, s.y);
+        }
+        S[at + C_LN] = ln; S[at + C_L1] = l1; S[at + C_L2] = l2; S[at + C_LT] = lt;
+        S[at + C_DEP] = dep;
       }
     }
-
-    for (int idx = 0; idx < n_f; ++idx) {
-      const int f = idx / LG_NUM_SAMPLES;
-      ProbeContact& ct = F[idx];
-      const PointData& sp = fingers[f].samples[idx % LG_NUM_SAMPLES];
-      V3 u = sub(cube_point_vel(v, w, ct.r), point_vel(sp.cols, qds[f]));
-      real tgt = tgs ? tgs_target(K, ct.d, ct.rest, it, false) : ct.target;
-      real d_lam = normal_step(dot(u, ct.n), tgt, ct.wn, ct.ln);
-      V3 p = scale(ct.n, d_lam);
-      cube_apply(body, v, w, ct.r, p);
-      apply_impulse(sp.minv_cols, qds[f], p, -R(1.));
-      if (tgs) {
-        u = sub(cube_point_vel(v, w, ct.r), point_vel(sp.cols, qds[f]));
-        ct.d = ct.d - dot(u, ct.n) * K.h_it;
-      }
-      real mu_l = mu_lc * ct.ln;
-      for (int which = 0; which < 2; ++which) {
-        const V3& t_vec = which == 0 ? ct.t1 : ct.t2;
-        real w_t = which == 0 ? ct.wt1 : ct.wt2;
-        real& lam = which == 0 ? ct.l1 : ct.l2;
-        u = sub(cube_point_vel(v, w, ct.r), point_vel(sp.cols, qds[f]));
-        d_lam = friction_step(dot(u, t_vec), w_t, lam, mu_l);
-        p = scale(t_vec, d_lam);
-        cube_apply(body, v, w, ct.r, p);
-        apply_impulse(sp.minv_cols, qds[f], p, -R(1.));
+    // ---- F
+    if (n_f > 0) {
+      real cur[F_NF];
+      // unrolled, so that the finger index is known when compiled and the
+      // fingers' velocities stay in registers (n_f is 0 or 6)
+#pragma unroll
+      for (int idx = 0; idx < 3 * LG_NUM_SAMPLES; ++idx) {
+        const int f = idx / LG_NUM_SAMPLES;
+        const int at = F_OFF + idx * F_NF;
+        load_rec(S, at, cur);
+        real ln = cur[F_LN], l1 = cur[F_L1], l2 = cur[F_L2], dep = cur[F_DEP];
+        real tgt = tgs ? tgs_target(K, dep, cur[F_TGT], inv_h_rem, false) : cur[F_TGT];
+        real dl = normal_step(u_cf(cur, s, f), tgt, cur[9], ln);
+        apply_cf(cur, dl, im, s, f);
+        if (tgs) dep = dep - u_cf(cur, s, f) * K.h_it;
+        real mu_l = mu_lc * ln;
+        dl = friction_step(u_cf(cur + F_ROW, s, f), cur[F_ROW + 9], l1, mu_l);
+        apply_cf(cur + F_ROW, dl, im, s, f);
+        dl = friction_step(u_cf(cur + 2 * F_ROW, s, f), cur[2 * F_ROW + 9], l2, mu_l);
+        apply_cf(cur + 2 * F_ROW, dl, im, s, f);
+        S[at + F_LN] = ln; S[at + F_L1] = l1; S[at + F_L2] = l2; S[at + F_DEP] = dep;
       }
     }
-
-    for (int f = 0; f < n_d; ++f) {
-      FingerContact& ct = D[f];
-      const PointData& tp = fingers[f].tip;
-      V3 u = point_vel(tp.cols, qds[f]);
-      real tgt = tgs ? tgs_target(K, ct.d, ct.rest, it, true) : ct.target;
-      real d_lam = normal_step(u.z, tgt, ct.wn, ct.ln);
-      apply_impulse(tp.minv_cols, qds[f], mk(R(0.), R(0.), d_lam), R(1.));
-      real mu_l = mu_tg * ct.ln;
-      u = point_vel(tp.cols, qds[f]);
-      if (tgs) ct.d = ct.d - u.z * K.h_it;
-      d_lam = friction_step(u.x, ct.wt1, ct.l1, mu_l);
-      apply_impulse(tp.minv_cols, qds[f], mk(d_lam, R(0.), R(0.)), R(1.));
-      u = point_vel(tp.cols, qds[f]);
-      d_lam = friction_step(u.y, ct.wt2, ct.l2, mu_l);
-      apply_impulse(tp.minv_cols, qds[f], mk(R(0.), d_lam, R(0.)), R(1.));
-    }
-
-    for (int f = 0; f < n_e; ++f) {
-      FingerContact& ct = E[f];
-      const PointData& tp = fingers[f].tip;
-      V3 u = point_vel(tp.cols, qds[f]);
-      real tgt = tgs ? tgs_target(K, ct.d, ct.rest, it, true) : ct.target;
-      real d_lam = normal_step(dot(u, ct.n), tgt, ct.wn, ct.ln);
-      apply_impulse(tp.minv_cols, qds[f], scale(ct.n, d_lam), R(1.));
-      if (tgs) {
-        u = point_vel(tp.cols, qds[f]);
-        ct.d = ct.d - dot(u, ct.n) * K.h_it;
-      }
-      real mu_l = mu_tw * ct.ln;
-      for (int which = 0; which < 2; ++which) {
-        const V3& t_vec = which == 0 ? ct.t1 : ct.t2;
-        real w_t = which == 0 ? ct.wt1 : ct.wt2;
-        real& lam = which == 0 ? ct.l1 : ct.l2;
-        u = point_vel(tp.cols, qds[f]);
-        d_lam = friction_step(dot(u, t_vec), w_t, lam, mu_l);
-        apply_impulse(tp.minv_cols, qds[f], scale(t_vec, d_lam), R(1.));
+    // ---- D, then E (finger-only rows: u = k_q.yq; n_d, n_e are 0 or 3)
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+      const int n_g = grp == 0 ? n_d : n_e;
+      const int off = grp == 0 ? D_OFF : E_OFF;
+      const real mu = grp == 0 ? mu_tg : mu_tw;
+      if (n_g == 0) continue;
+      real cur[D_NF];
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        const int at = off + f * D_NF;
+        load_rec(S, at, cur);
+        real ln = cur[D_LN], l1 = cur[D_L1], l2 = cur[D_L2], dep = cur[D_DEP];
+        real tgt = tgs ? tgs_target(K, dep, cur[D_TGT], inv_h_rem, true) : cur[D_TGT];
+        real dl = normal_step(dot3(cur, s.yq[f]), tgt, cur[3], ln);
+        axpy3(dl, cur, s.yq[f]);
+        real mu_l = mu * ln;
+        if (tgs) dep = dep - dot3(cur, s.yq[f]) * K.h_it;
+        dl = friction_step(dot3(cur + D_ROW, s.yq[f]), cur[D_ROW + 3], l1, mu_l);
+        axpy3(dl, cur + D_ROW, s.yq[f]);
+        dl = friction_step(dot3(cur + 2 * D_ROW, s.yq[f]), cur[2 * D_ROW + 3], l2, mu_l);
+        axpy3(dl, cur + 2 * D_ROW, s.yq[f]);
+        S[at + D_LN] = ln; S[at + D_L1] = l1; S[at + D_L2] = l2; S[at + D_DEP] = dep;
       }
     }
 
     if (tgs) {
       // mini-step pose integration; contact frames stay frozen at substep start
-      p_pos = mk(p_pos.x + K.h_it * v.x, p_pos.y + K.h_it * v.y, p_pos.z + K.h_it * v.z);
-      p_quat = quat_integrate(p_quat, w, K.half_h_it);
-      for (int f = 0; f < 3; ++f)
-        for (int j = 0; j < 3; ++j) p_q[3 * f + j] = p_q[3 * f + j] + K.h_it * qds[f][j];
+      p_pos = mk(p_pos.x + K.h_it * s.v[0], p_pos.y + K.h_it * s.v[1],
+                 p_pos.z + K.h_it * s.v[2]);
+      p_quat = quat_integrate(p_quat, world_w(c, s.y), K.half_h_it);
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        V3 qdf = chol3_upper(lf[f], mk(s.yq[f][0], s.yq[f][1], s.yq[f][2]));
+        p_q[3 * f] = p_q[3 * f] + K.h_it * qdf.x;
+        p_q[3 * f + 1] = p_q[3 * f + 1] + K.h_it * qdf.y;
+        p_q[3 * f + 2] = p_q[3 * f + 2] + K.h_it * qdf.z;
+      }
     }
   }
 
-  // ---- fingertip contact impulses (wrench sensing)
-  for (int f = 0; f < 3; ++f) {
-    const ProbeContact& ct = C[f];
-    const V3 tip_w = fingers[f].tip.pos_w;
-    V3 imp_c = scale(add(add(scale(ct.n, ct.ln), scale(ct.t1, ct.l1)), scale(ct.t2, ct.l2)),
-                     -R(1.));
-    V3 center = tip_center[f];
-    V3 imp = imp_c;
-    V3 timp = cross(sub(ct.point, tip_w), imp_c);
-    if (K.enable_tip_ground) {
-      V3 imp_d = mk(D[f].l1, D[f].l2, D[f].ln);
-      V3 arm_d = sub(mk(center.x, center.y, center.z - P[P_TIP_RADIUS]), tip_w);
-      imp = add(imp, imp_d);
-      timp = add(timp, cross(arm_d, imp_d));
-    }
-    if (K.enable_tip_wall) {
-      const FingerContact& et = E[f];
-      V3 imp_e = add(add(scale(et.n, et.ln), scale(et.t1, et.l1)), scale(et.t2, et.l2));
-      V3 arm_e = sub(sub(center, scale(et.n, P[P_TIP_RADIUS])), tip_w);
-      imp = add(imp, imp_e);
-      timp = add(timp, cross(arm_e, imp_e));
-    }
-    imp = add(imp, zv);
-    timp = add(timp, zv);
-    imp_acc[3 * f] = imp_acc[3 * f] + imp.x;
-    imp_acc[3 * f + 1] = imp_acc[3 * f + 1] + imp.y;
-    imp_acc[3 * f + 2] = imp_acc[3 * f + 2] + imp.z;
-    imp_acc[9 + 3 * f] = imp_acc[9 + 3 * f] + timp.x;
-    imp_acc[9 + 3 * f + 1] = imp_acc[9 + 3 * f + 1] + timp.y;
-    imp_acc[9 + 3 * f + 2] = imp_acc[9 + 3 * f + 2] + timp.z;
-  }
-
-  // ---- integrate positions + joint limits
+  // ---- integrate positions + joint limits; the next substep's state
   const real vlim = P[P_VLIM];
-  for (int f = 0; f < 3; ++f)
+#pragma unroll
+  for (int f = 0; f < 3; ++f) {
+    V3 qdf = chol3_upper(lf[f], mk(s.yq[f][0], s.yq[f][1], s.yq[f][2]));
+    const real qds[3] = {qdf.x, qdf.y, qdf.z};
     for (int j = 0; j < 3; ++j) {
       const int gi = 3 * f + j;
-      real qv = tgs ? p_q[gi] : s.q[gi] + K.h * qds[f][j];
+      real qv = tgs ? p_q[gi] : S[X_STATE + gi] + K.h * qds[j];
       real qc = clipf_(qv, K.jlow[gi], K.jhigh[gi]);
-      real qdv = qds[f][j];
+      real qdv = qds[j];
       bool at_lower = (qv <= K.jlow[gi]) && (qdv < R(0.));
       bool at_upper = (qv >= K.jhigh[gi]) && (qdv > R(0.));
       qdv = (at_lower || at_upper) ? R(0.) : qdv;
       qdv = clipf_(qdv, -vlim, vlim);
-      s.q[gi] = qc;
-      s.qd[gi] = qdv;
+      S[X_STATE + gi] = qc;
+      S[X_STATE + 9 + gi] = qdv;
     }
-
+  }
+  V3 w = world_w(c, s.y);
   real w_norm = lg_sqrt(lg_fmax(dot(w, w), R(1e-18)));
   real w_scale = w_norm > K.max_cube_angvel ? K.max_cube_angvel / w_norm : R(1.);
   w = scale(w, w_scale);
-
-  if (tgs) {
-    s.pos = p_pos;
-    s.quat = p_quat;
-  } else {
-    s.quat = quat_integrate(quat, w, K.half_h);
-    s.pos = mk(pos.x + K.h * v.x, pos.y + K.h * v.y, pos.z + K.h * v.z);
+  const V3 v = mk(s.v[0], s.v[1], s.v[2]);
+  if (!tgs) {
+    p_quat = quat_integrate(c.quat, w, K.half_h);
+    p_pos = mk(c.pos.x + K.h * v.x, c.pos.y + K.h * v.y, c.pos.z + K.h * v.z);
   }
-  s.v = v;
-  s.w = w;
+  put3(S, X_STATE + 18, p_pos);
+  S[X_STATE + 21] = p_quat.x; S[X_STATE + 22] = p_quat.y;
+  S[X_STATE + 23] = p_quat.z; S[X_STATE + 24] = p_quat.w;
+  put3(S, X_STATE + 25, v);
+  put3(S, X_STATE + 28, w);
 }
 
-// one env through all substeps: load (C, N) columns, loop, store
-LG_HD void step_env(const LgConsts& K, const real* __restrict__ state,
-                    const real* __restrict__ params, const real* __restrict__ tau,
-                    real* __restrict__ out, real* __restrict__ wrench, int n, int env) {
-  PhysState s;
-  real t[9], P[LG_PARAM_ROWS], acc[LG_WRENCH_ROWS];
-  for (int i = 0; i < 9; ++i) s.q[i] = state[i * n + env];
-  for (int i = 0; i < 9; ++i) s.qd[i] = state[(9 + i) * n + env];
-  s.pos = mk(state[18 * n + env], state[19 * n + env], state[20 * n + env]);
-  s.quat.x = state[21 * n + env];
-  s.quat.y = state[22 * n + env];
-  s.quat.z = state[23 * n + env];
-  s.quat.w = state[24 * n + env];
-  s.v = mk(state[25 * n + env], state[26 * n + env], state[27 * n + env]);
-  s.w = mk(state[28 * n + env], state[29 * n + env], state[30 * n + env]);
-  for (int i = 0; i < 9; ++i) t[i] = tau[i * n + env];
-  for (int i = 0; i < LG_PARAM_ROWS; ++i) P[i] = params[i * n + env];
-  for (int i = 0; i < LG_WRENCH_ROWS; ++i) acc[i] = R(0.);
+// ---------------------------------------------------------------------------
+// tip impulses, roles 1-3 (wrench sensing): force acc[0..2], torque acc[3..5]
+// ---------------------------------------------------------------------------
 
-  for (int k = 0; k < K.substeps; ++k) substep(K, s, t, P, acc);
+template <int ST>
+LG_HD void tip_impulse(const LgConsts& K, const Env<ST>& S, int f, const TipGeom& tg,
+                       real acc[6]) {
+  const int ac = C_OFF + f * C_NF;
+  const V3 zv = mk(R(0.), R(0.), R(0.));
+  V3 imp_c = scale(add(add(scale(tg.cn, S[ac + C_LN]), scale(tg.ct1, S[ac + C_L1])),
+                       scale(tg.ct2, S[ac + C_L2])),
+                   -R(1.));
+  V3 imp = imp_c;
+  V3 timp = cross(tg.arm_c, imp_c);
+  if (K.enable_tip_ground) {
+    const int ad = D_OFF + f * D_NF;
+    V3 imp_d = mk(S[ad + D_L1], S[ad + D_L2], S[ad + D_LN]);
+    imp = add(imp, imp_d);
+    timp = add(timp, cross(tg.arm_d, imp_d));
+  }
+  if (K.enable_tip_wall) {
+    const int ae = E_OFF + f * D_NF;
+    V3 imp_e = add(add(scale(tg.en, S[ae + D_LN]), scale(tg.et1, S[ae + D_L1])),
+                   scale(tg.et2, S[ae + D_L2]));
+    imp = add(imp, imp_e);
+    timp = add(timp, cross(tg.arm_e, imp_e));
+  }
+  imp = add(imp, zv);
+  timp = add(timp, zv);
+  acc[0] = acc[0] + imp.x; acc[1] = acc[1] + imp.y; acc[2] = acc[2] + imp.z;
+  acc[3] = acc[3] + timp.x; acc[4] = acc[4] + timp.y; acc[5] = acc[5] + timp.z;
+}
 
-  for (int i = 0; i < 9; ++i) out[i * n + env] = s.q[i];
-  for (int i = 0; i < 9; ++i) out[(9 + i) * n + env] = s.qd[i];
-  out[18 * n + env] = s.pos.x;
-  out[19 * n + env] = s.pos.y;
-  out[20 * n + env] = s.pos.z;
-  out[21 * n + env] = s.quat.x;
-  out[22 * n + env] = s.quat.y;
-  out[23 * n + env] = s.quat.z;
-  out[24 * n + env] = s.quat.w;
-  out[25 * n + env] = s.v.x;
-  out[26 * n + env] = s.v.y;
-  out[27 * n + env] = s.v.z;
-  out[28 * n + env] = s.w.x;
-  out[29 * n + env] = s.w.y;
-  out[30 * n + env] = s.w.z;
-  for (int i = 0; i < LG_WRENCH_ROWS; ++i) wrench[i * n + env] = acc[i];
+// ---------------------------------------------------------------------------
+// the phases of one env's control step
+// ---------------------------------------------------------------------------
+
+template <int ST>
+LG_HD void load_state(const Env<ST>& S, const real* __restrict__ state, int n, int env) {
+  for (int i = 0; i < LG_STATE_ROWS; ++i) S[X_STATE + i] = state[i * n + env];
+}
+
+template <int ST>
+LG_HD void store_state(const Env<ST>& S, real* __restrict__ out, int n, int env) {
+  for (int i = 0; i < LG_STATE_ROWS; ++i) out[i * n + env] = S[X_STATE + i];
+}
+
+// role 0 builds the cube rows, role 1 + f finger f's
+template <int ST>
+LG_HD void build_phase(const LgConsts& K, const Env<ST>& S, const real* P, const real* tau,
+                       int role, TipGeom& tg) {
+  Cube c;
+  cube_start(K, S, P, c);
+  if (role == 0)
+    build_cube_rows(K, S, P, c);
+  else
+    build_finger_rows(K, S, P, tau, c, role - 1, tg);
+}
+
+template <int ST>
+LG_HD void sweep_phase(const LgConsts& K, const Env<ST>& S, const real* P) {
+  Cube c;
+  cube_start(K, S, P, c);
+  sweep_and_integrate(K, S, P, c);
 }
 
 #ifdef __CUDACC__
 
-__global__ void physics_step_kernel(const LgConsts K, const real* __restrict__ state,
-                                    const real* __restrict__ params,
-                                    const real* __restrict__ tau, real* __restrict__ out,
-                                    real* __restrict__ wrench, int n) {
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= n) return;
-  step_env(K, state, params, tau, out, wrench, n, env);
+// LG_ROLES warps per block: role = threadIdx.x / LG_EPB, env in block =
+// threadIdx.x % LG_EPB; every warp takes one role for all its envs.
+__global__ void __launch_bounds__(LG_ROLES * LG_EPB)
+physics_step_kernel(const LgConsts K, const real* __restrict__ state,
+                    const real* __restrict__ params, const real* __restrict__ tau,
+                    real* __restrict__ out, real* __restrict__ wrench, int n) {
+  extern __shared__ real lg_smem[];
+  const int role = threadIdx.x / LG_EPB;
+  const int e = threadIdx.x % LG_EPB;
+  const int env = blockIdx.x * LG_EPB + e;
+  // the ragged edge: envs past n compute on a copy of the last env and store
+  // nothing, so every thread reaches every barrier
+  const bool active = env < n;
+  const int src = active ? env : n - 1;
+  const Env<LG_EPB> S{lg_smem + e};
+  real P[LG_PARAM_ROWS], t[9], acc[6];
+  for (int i = 0; i < LG_PARAM_ROWS; ++i) P[i] = params[i * n + src];
+  for (int i = 0; i < 9; ++i) t[i] = tau[i * n + src];
+  for (int i = 0; i < 6; ++i) acc[i] = R(0.);
+  TipGeom tg;
+  if (role == 0) load_state(S, state, n, src);
+  __syncthreads();
+  for (int k = 0; k < K.substeps; ++k) {
+    build_phase(K, S, P, t, role, tg);
+    __syncthreads();
+    if (role == 0) sweep_phase(K, S, P);
+    __syncthreads();
+    if (role > 0) tip_impulse(K, S, role - 1, tg, acc);
+  }
+  if (!active) return;
+  if (role == 0) {
+    store_state(S, out, n, env);
+  } else {
+    const int f = role - 1;
+    for (int i = 0; i < 3; ++i) {
+      wrench[(3 * f + i) * n + env] = acc[i];
+      wrench[(9 + 3 * f + i) * n + env] = acc[3 + i];
+    }
+  }
+}
+
+static const size_t lg_smem_bytes = (size_t)LG_EPB * LG_ENV_FLOATS * sizeof(real);
+
+// The block's dynamic shared memory is above the 48 KB default: raise the cap.
+static cudaError_t lg_set_smem() {
+  return cudaFuncSetAttribute(physics_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)lg_smem_bytes);
 }
 
 // Launches on `stream`; allocates nothing. Returns cudaGetLastError().
 extern "C" int leibniz_physics_step(const real* state, const real* params,
                                     const real* tau, real* out, real* wrench, int n,
-                                    const LgConsts* consts, int threads_per_block,
-                                    void* stream) {
+                                    const LgConsts* consts, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + threads_per_block - 1) / threads_per_block;
-  physics_step_kernel<<<blocks, threads_per_block, 0, (cudaStream_t)stream>>>(
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaError_t err = lg_set_smem();
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const int blocks = (n + LG_EPB - 1) / LG_EPB;
+  physics_step_kernel<<<blocks, LG_ROLES * LG_EPB, lg_smem_bytes, (cudaStream_t)stream>>>(
       *consts, state, params, tau, out, wrench, n);
   return (int)cudaGetLastError();
 }
 
+// Resident blocks per SM and dynamic shared memory per block of the launch
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int leibniz_physics_step_occupancy(int* blocks_per_sm, int* smem_bytes) {
+  *smem_bytes = (int)lg_smem_bytes;
+  cudaError_t err = lg_set_smem();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, physics_step_kernel,
+                                                        LG_ROLES * LG_EPB, lg_smem_bytes);
+  return (int)err;
+}
+
 #endif  // __CUDACC__
 
-// The same per-env function on the host, for tests of this source without a GPU.
+// The same phases on the host, one env after another, for tests of this
+// source without a GPU.
 extern "C" int leibniz_physics_step_host(const real* state, const real* params,
                                          const real* tau, real* out, real* wrench, int n,
                                          const LgConsts* consts) {
-  for (int env = 0; env < n; ++env) step_env(*consts, state, params, tau, out, wrench, n, env);
+  const LgConsts& K = *consts;
+  real store[LG_ENV_FLOATS];
+  const Env<1> S{store};
+  for (int env = 0; env < n; ++env) {
+    real P[LG_PARAM_ROWS], t[9], acc[3][6];
+    for (int i = 0; i < LG_PARAM_ROWS; ++i) P[i] = params[i * n + env];
+    for (int i = 0; i < 9; ++i) t[i] = tau[i * n + env];
+    for (int f = 0; f < 3; ++f)
+      for (int i = 0; i < 6; ++i) acc[f][i] = R(0.);
+    TipGeom tg[LG_ROLES];
+    load_state(S, state, n, env);
+    for (int k = 0; k < K.substeps; ++k) {
+      for (int role = 0; role < LG_ROLES; ++role) build_phase(K, S, P, t, role, tg[role]);
+      sweep_phase(K, S, P);
+      for (int f = 0; f < 3; ++f) tip_impulse(K, S, f, tg[f + 1], acc[f]);
+    }
+    store_state(S, out, n, env);
+    for (int f = 0; f < 3; ++f)
+      for (int i = 0; i < 3; ++i) {
+        wrench[(3 * f + i) * n + env] = acc[f][i];
+        wrench[(9 + 3 * f + i) * n + env] = acc[f][3 + i];
+      }
+  }
   return 0;
 }
 

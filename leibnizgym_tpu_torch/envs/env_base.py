@@ -13,8 +13,8 @@ from typing import Dict, Optional
 
 import torch
 
-from leibnizgym_tpu.utils.helpers import merged_dict
-from leibnizgym_tpu.utils.message import print_dict, print_info
+from leibnizgym_tpu_torch.utils.helpers import merged_dict, resolve_device
+from leibnizgym_tpu_torch.utils.message import print_dict, print_info
 
 # default simulator configuration (the same keys and values as the reference
 # package; PhysX-only knobs are accepted and ignored)
@@ -55,11 +55,11 @@ class EnvBase:
 
     def __init__(self, obs_spec: Dict[str, int], action_spec: Dict[str, int],
                  state_spec: Dict[str, int], config: Optional[dict] = None,
-                 device="cpu", verbose: bool = True):
+                 device="cuda:0", verbose: bool = True):
         self.obs_spec = dict(obs_spec)
         self.action_spec = dict(action_spec)
         self.state_spec = dict(state_spec)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.verbose = verbose
         self.config = merged_dict(dict(SIM_DEFAULT_CONFIG_DICT), config or {})
         if verbose:

@@ -31,8 +31,8 @@ import torch
 
 from leibnizgym_tpu_torch import dr
 from leibnizgym_tpu_torch.models import trifinger as tf_model
-from leibnizgym_tpu.utils.helpers import merged_dict
-from leibnizgym_tpu.utils.message import print_info
+from leibnizgym_tpu_torch.utils.helpers import merged_dict, resolve_device
+from leibnizgym_tpu_torch.utils.message import print_info
 from leibnizgym_tpu_torch.envs.env_base import EnvBase
 from leibnizgym_tpu_torch.envs.trifinger import sample as sampling
 from leibnizgym_tpu_torch.envs.trifinger.config import (
@@ -264,11 +264,13 @@ def build_static(config: dict) -> EnvStatic:
 
 
 def build_params(static: EnvStatic, object_dims, arena: Optional[dict] = None,
-                 object_density: Optional[float] = None, device="cpu",
+                 object_density: Optional[float] = None, device="cuda:0",
                  dtype=torch.float32) -> EnvParams:
     """Scale vectors and sampling geometry, as the reference assembles them.
     ``dtype`` is the env's working type (float32; float64 on the CPU for
-    tests that compare formulas without float32 rounding)."""
+    tests that compare formulas without float32 rounding). ``device``
+    defaults to ``cuda:0``; CPU callers pass ``device="cpu"``."""
+    device = resolve_device(device)
     jpos_low = np.tile(tf_model.JOINT_POS_LOW, 3)
     jpos_high = np.tile(tf_model.JOINT_POS_HIGH, 3)
     jvel_low = np.full(9, -tf_model.MAX_VELOCITY_RADPS, np.float32)
@@ -988,11 +990,13 @@ def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None,
 
 class TrifingerEnv(EnvBase):
     """Stateful wrapper with the reference's public surface (``reset()``,
-    ``step(action)``, ``get_state()``, buffer properties) on an explicit
-    torch ``device``."""
+    ``step(action)``, ``get_state()``, buffer properties) on a torch
+    ``device``: ``cuda:0`` unless the caller passes another (``device="cpu"``
+    on the CPU); asking for CUDA without a card is an error."""
 
-    def __init__(self, config: Optional[dict] = None, device="cpu",
+    def __init__(self, config: Optional[dict] = None, device="cuda:0",
                  verbose: bool = True, dtype=torch.float32):
+        device = resolve_device(device)
         merged = merged_dict(dict(SIM_DEFAULT_CONFIG_DICT), TRIFINGER_DEFAULT_CONFIG_DICT)
         if config is not None:
             merged = merged_dict(merged, config)

@@ -34,7 +34,8 @@ import numpy as np
 import torch
 import yaml
 
-from leibnizgym_tpu.utils import print_error, print_info, print_notify, print_warn
+from leibnizgym_tpu_torch.utils.helpers import resolve_device as _resolve_device
+from leibnizgym_tpu_torch.utils.message import print_error, print_info, print_notify, print_warn
 from leibnizgym_tpu_torch.convert import checkpoint_from_npz
 from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
 from leibnizgym_tpu_torch.learning.ppo import (
@@ -50,13 +51,7 @@ def resolve_device(name) -> torch.device:
     """The torch device for an ``args.device`` string. The shared config's
     default ``"TPU"`` means ``cuda:0``; a CUDA device without a card is an
     error, never a silent CPU run."""
-    device = torch.device("cuda", 0) if str(name).upper() == "TPU" else torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} asks for CUDA, but torch.cuda.is_available() is False; "
-            "pass args.device=cpu to train on the CPU"
-        )
-    return device
+    return _resolve_device(name, cpu_hint="args.device=cpu")
 
 
 def _summary_writer_cls():

@@ -9,7 +9,7 @@ import threading
 import time
 from typing import Optional
 
-from leibnizgym_tpu.utils import print_info
+from leibnizgym_tpu_torch.utils.message import print_info
 from leibnizgym_tpu_torch.learning.runner import Runner
 
 

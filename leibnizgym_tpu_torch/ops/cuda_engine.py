@@ -1,22 +1,34 @@
 """The physics step as a hand-written CUDA kernel (counterpart of
 ``ops/pallas_engine.py``).
 
-``csrc/physics_step.cu`` advances every env through one control step, one
-thread per env, on the component-major (C, N) layout: state (31, N), params
-(40, N), tau (9, N) in; state (31, N) and tip impulse sums (18, N) out. It is
-built with nvcc at first use into ``build/leibnizgym_tpu_torch/<hash>/`` (the
-hash covers the source and the flags) and loaded with ctypes.
+``csrc/physics_step.cu`` advances every env through one control step on the
+component-major (C, N) layout, 32 envs per block (4 warps: the solver rows
+are built once per substep by the team and swept by one lane per env):
+state (31, N), params (40, N), tau (9, N) in; state (31, N) and tip impulse
+sums (18, N) out. It is built with nvcc at first use into
+``build/leibnizgym_tpu_torch/<hash>/`` (the hash covers the source and the
+flags) and loaded with ctypes.
 
 Dispatch is by the tensors' device and nothing else: ``physics_step_cuda`` on
 CUDA tensors launches the kernel (or raises), on CPU tensors it runs the
 plain PyTorch version ``physics_step_plain`` (``ops/engine_v2.py``).
 ``launch_count`` counts kernel launches.
+
+The kernel's bound is computed here the same way whatever implements it:
+``step_flops(cfg)`` counts the elementwise operations of one control step of
+the plain version, which follows the reference's ``_substep_fields`` formula
+by formula (``tests/test_torch_cuda_bound.py`` holds it to a walk of the
+reference's jaxpr); ``step_bytes(n)`` counts each input read once and each
+output written once; ``bound_ms`` is the larger of the two over the card's
+published float32 and memory rates.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import fcntl
+import functools
 import hashlib
 import os
 import re
@@ -25,6 +37,7 @@ import subprocess
 import time
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from leibnizgym_tpu_torch.models import trifinger as tf_model
 from leibnizgym_tpu_torch.ops import engine_v2 as ev2
@@ -41,7 +54,8 @@ from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConf
 
 __all__ = [
     "pack_state", "pack_params", "physics_step_cuda", "physics_step_plain",
-    "step_packed_cuda", "launch_count", "build", "kernel_consts",
+    "step_packed_cuda", "launch_count", "build", "build_info", "kernel_consts",
+    "occupancy", "step_flops", "step_chain", "step_bytes", "bound_ms", "ENVS_PER_BLOCK",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,14 +65,20 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# one warp per block: at 8192 envs there are 256 warps for 132 SMs (see the
-# source note)
-THREADS_PER_BLOCK = 32
+# envs per block (LG_EPB in the source): one warp of envs; at 8192 envs that
+# is 256 blocks, two per SM on 128 of the 132 SMs, all resident at once (see
+# the source note)
+ENVS_PER_BLOCK = 32
+
+# NVIDIA H100 SXM, published: float32 outside the tensor cores, HBM3 rate
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 
 launch_count = 0
 
 _lib = None
 build_info: dict = {}
+
 
 def _consts_struct(real):
     """Mirror of ``struct LgConsts`` in csrc/physics_step.cu, whose working
@@ -154,7 +174,8 @@ def _nvcc() -> str:
 
 
 def _parse_ptxas(log: str) -> dict:
-    """Registers and spills of physics_step_kernel from `-Xptxas -v`."""
+    """Registers, spills and static shared memory of physics_step_kernel
+    from `-Xptxas -v`."""
     info = {}
     m = re.search(r"Used (\d+) registers", log)
     if m:
@@ -165,11 +186,14 @@ def _parse_ptxas(log: str) -> dict:
         info["stack_frame_bytes"] = int(m.group(1))
         info["spill_store_bytes"] = int(m.group(2))
         info["spill_load_bytes"] = int(m.group(3))
+    m = re.search(r"(\d+) bytes smem", log)
+    info["static_smem_bytes"] = int(m.group(1)) if m else 0
     return info
 
 
 def build() -> ctypes.CDLL:
-    """Build (once per source/flags hash) and load the kernel library."""
+    """Build (once per source/flags hash) and load the kernel library of
+    this checkout; its build record is ``build_info``."""
     global _lib, build_info
     if _lib is not None:
         return _lib
@@ -197,8 +221,7 @@ def build() -> ctypes.CDLL:
     lib = ctypes.CDLL(lib_path)
     ptr = ctypes.c_void_p
     lib.leibniz_physics_step.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.POINTER(_KernelConsts),
-        ctypes.c_int, ptr,
+        ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.POINTER(_KernelConsts), ptr,
     ]
     lib.leibniz_physics_step.restype = ctypes.c_int
     lib.leibniz_consts_size.restype = ctypes.c_int
@@ -210,6 +233,18 @@ def build() -> ctypes.CDLL:
                       library=lib_path, log=log_path)
     _lib = lib
     return lib
+
+
+def occupancy() -> dict:
+    """Resident blocks per SM and dynamic shared memory per block of the
+    kernel's launch (cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the
+    C entry ``leibniz_physics_step_occupancy``)."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = build().leibniz_physics_step_occupancy(ctypes.byref(blocks), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"physics_step occupancy query failed: CUDA error {rc}")
+    return {"blocks_per_sm": blocks.value, "dynamic_smem_bytes": smem.value,
+            "envs_per_block": ENVS_PER_BLOCK}
 
 
 def _check(name: str, t: torch.Tensor, rows: int, n: int, device):
@@ -224,8 +259,7 @@ def _check(name: str, t: torch.Tensor, rows: int, n: int, device):
 
 
 def step_packed_cuda(state31: torch.Tensor, params40: torch.Tensor,
-                     tau9: torch.Tensor, cfg: SolverConfig, dt: float,
-                     threads_per_block: int = THREADS_PER_BLOCK):
+                     tau9: torch.Tensor, cfg: SolverConfig, dt: float):
     """Launch the kernel on packed CUDA tensors; returns (state' (31, N),
     impulse sums (18, N)). Raises on anything the kernel does not take."""
     global launch_count
@@ -244,8 +278,7 @@ def step_packed_cuda(state31: torch.Tensor, params40: torch.Tensor,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.leibniz_physics_step(
             state31.data_ptr(), params40.data_ptr(), tau9.data_ptr(),
-            out.data_ptr(), wrench.data_ptr(), n, ctypes.byref(consts),
-            int(threads_per_block), stream,
+            out.data_ptr(), wrench.data_ptr(), n, ctypes.byref(consts), stream,
         )
     if rc != 0:
         raise RuntimeError(f"physics_step kernel launch failed: CUDA error {rc}")
@@ -270,3 +303,99 @@ def physics_step_plain(state: PhysicsState, tau: torch.Tensor, params: ScenePara
                        cfg: SolverConfig, dt: float = 0.02):
     """The same step as ``physics_step_cuda`` in plain PyTorch, on any device."""
     return ev2.physics_step_v2(state, tau, params, cfg, dt)
+
+
+# ---------------------------------------------------------------------------
+# The bound: operations and bytes of one control step
+# ---------------------------------------------------------------------------
+
+# One elementwise operation each, whatever the operand types (the jaxpr
+# primitives add, sub, mul, div, neg, max, min, select_n, comparisons,
+# and/or, sqrt, sin, cos, abs, sign of the reference).
+_ELEMENTWISE = frozenset({
+    "__add__", "__radd__", "__sub__", "__rsub__", "__mul__", "__rmul__",
+    "__truediv__", "__rtruediv__", "__rdiv__", "__neg__", "__abs__", "gt", "lt",
+    "ge", "le", "eq", "ne", "__and__", "__or__", "__invert__",
+    "add", "sub", "mul", "div", "neg", "sqrt", "sin", "cos", "abs", "sign",
+    "maximum", "minimum", "clamp_min", "clamp_max", "where", "reciprocal",
+})
+
+
+class _OpCounter(TorchFunctionMode):
+    """Counts elementwise operations and the longest chain of dependent ones
+    (each output one deeper than its deepest tensor input)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+        self.depth = {}
+        self.keep = []
+
+    def _in_depth(self, args) -> int:
+        d = 0
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                d = max(d, self.depth.get(id(a), 0))
+            elif isinstance(a, (tuple, list)):
+                d = max(d, self._in_depth(a))
+        return d
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        name = getattr(func, "__name__", "")
+        if isinstance(out, torch.Tensor):
+            d = self._in_depth(args)
+            if name in _ELEMENTWISE:
+                self.ops += 1
+                d += 1
+            self.depth[id(out)] = d
+            self.keep.append(out)
+        return out
+
+
+@functools.lru_cache(maxsize=64)
+def _substep_counts(cfg: SolverConfig) -> tuple:
+    """(operations, longest dependent chain) of one ``_substep_fields`` call
+    of the plain version, traced on one env."""
+    g = torch.Generator().manual_seed(0)
+    state = torch.rand((STATE_ROWS, 1), generator=g)
+    params = pack_params(SceneParams.default(
+        object_shape="sphere" if cfg.object_shape == 1 else "box"), 1)
+    tau = torch.rand((9, 1), generator=g)
+    rows, prm = ev2.rows_namespace(state, params)
+    with _OpCounter() as counter:
+        out = ev2._substep_fields(rows, tuple(tau[i] for i in range(9)), prm, cfg,
+                                  0.02 / cfg.substeps)
+    flat = [t for part in out for t in (part if isinstance(part[0], torch.Tensor)
+                                        else [x for v in part for x in v])]
+    return counter.ops, max(counter.depth.get(id(t), 0) for t in flat)
+
+
+def step_flops(cfg: SolverConfig) -> int:
+    """Elementwise operations per env of one control step: ``substeps`` times
+    one ``_substep_fields`` (its sweep ``solver_iterations`` times), each
+    primitive 1 op (divides, square roots, sin/cos, max/min, selects and
+    comparisons included). Data-independent: the step has no early exit."""
+    return cfg.substeps * _substep_counts(dataclasses.replace(cfg))[0]
+
+
+def step_chain(cfg: SolverConfig) -> int:
+    """Dependent operations on one env's longest chain through one control
+    step, as the plain version (and the reference) associate them."""
+    return cfg.substeps * _substep_counts(dataclasses.replace(cfg))[1]
+
+
+def step_bytes(n: int) -> int:
+    """Bytes one control step must move for n envs: state (31), params (40)
+    and tau (9) read once, state (31) and impulse sums (18) written once,
+    float32."""
+    return 4 * n * (STATE_ROWS + PARAM_ROWS + 9 + STATE_ROWS + WRENCH_ROWS)
+
+
+def bound_ms(cfg: SolverConfig, n: int) -> tuple:
+    """(least time in ms, "operations" or "bytes"): the larger of the ops
+    over the published float32 rate and the bytes over the memory rate of an
+    H100 SXM at its full 700 W."""
+    t_ops = step_flops(cfg) * n / PEAK_FP32_FLOPS * 1e3
+    t_bytes = step_bytes(n) / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")

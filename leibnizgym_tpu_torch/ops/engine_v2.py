@@ -4,10 +4,12 @@ This is the CUDA kernel's plain version and its oracle. Every intermediate
 is a scalar component; with (N,) rows as components the whole substep is
 batched over envs as written, so no vmap is needed. The formulas and their
 order follow the reference line by line (both solvers, both object shapes,
-every ``enable_*`` gate), and ``csrc/physics_step.cu`` follows this file.
+every ``enable_*`` gate); ``csrc/physics_step.cu`` computes the same step
+from solver rows built once per substep, and ``ops/cuda_engine.step_flops``
+counts this file's operations as the kernel's bound.
 
 Everything static (chain offsets, mount yaws, link inertias, joint limits)
-is a Python float, read from ``leibnizgym_tpu.models.trifinger``.
+is a Python float, read from the port's ``models/trifinger.py``.
 """
 
 from __future__ import annotations

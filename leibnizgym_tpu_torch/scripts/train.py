@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import sys
 
-from leibnizgym_tpu.utils import print_dict, print_info
+from leibnizgym_tpu_torch.utils.message import print_dict, print_info
 from leibnizgym_tpu_torch.config.presets import parse_cli, update_cfg
 from leibnizgym_tpu_torch.learning.train import run_training
 

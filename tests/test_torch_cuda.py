@@ -7,8 +7,10 @@ imports JAX, so on such a machine run it without the conftest:
 
 - ``step_packed_cuda`` against the plain version on the same card, ragged
   N = 1000, TGS and PGS, within chip_smoke.py's tolerances (nvcc contracts
-  a*b+c into FMAs and the device sin/cos differ from PyTorch's by an ulp,
-  which the contact solve amplifies, most in the cube's angular velocity);
+  a*b+c into FMAs, the kernel sums each row in its own order and the device
+  sin/cos differ from PyTorch's by an ulp, which the contact solve
+  amplifies, most in the cube's angular velocity); more ragged N (37, 4097,
+  1000 with another seed), every env resident at once at 8192 envs;
 - each launch adds one to ``launch_count``, and a CUDA tensor never reaches
   the plain version;
 - the wrapper refuses a wrong dtype, shape, layout or device;
@@ -48,27 +50,25 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _inputs(dev, seed=0):
+def _inputs(dev, seed=0, n=N):
     rng = np.random.default_rng(seed)
-    quat = rng.normal(size=(N, 4))
+    quat = rng.normal(size=(n, 4))
     quat /= np.linalg.norm(quat, axis=1, keepdims=True)
-    cols = [np.tile(tf_model.JOINT_POS_DEFAULT, 3) + rng.uniform(-0.4, 0.4, (N, 9)),
-            rng.uniform(-2.0, 2.0, (N, 9)),
-            np.stack([rng.uniform(-0.12, 0.12, N), rng.uniform(-0.12, 0.12, N),
-                      rng.uniform(0.02, 0.08, N)], -1),
-            quat, rng.uniform(-0.5, 0.5, (N, 3)), rng.uniform(-3.0, 3.0, (N, 3))]
+    cols = [np.tile(tf_model.JOINT_POS_DEFAULT, 3) + rng.uniform(-0.4, 0.4, (n, 9)),
+            rng.uniform(-2.0, 2.0, (n, 9)),
+            np.stack([rng.uniform(-0.12, 0.12, n), rng.uniform(-0.12, 0.12, n),
+                      rng.uniform(0.02, 0.08, n)], -1),
+            quat, rng.uniform(-0.5, 0.5, (n, 3)), rng.uniform(-3.0, 3.0, (n, 3))]
     t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
     state = PhysicsState(*(t(c) for c in cols))
-    tau = t(rng.uniform(-0.36, 0.36, (N, 9)))
-    return state, tau, SceneParams.default(device=dev).broadcast(N)
+    tau = t(rng.uniform(-0.36, 0.36, (n, 9)))
+    return state, tau, SceneParams.default(device=dev).broadcast(n)
 
 
-@pytest.mark.parametrize("solver_type", [0, 1])
-def test_kernel_matches_plain_on_card(dev, solver_type):
-    cfg = SolverConfig(solver_type=solver_type, substeps=4, solver_iterations=8)
-    state, tau, scene = _inputs(dev)
+def _check_against_plain(dev, cfg, n, seed=0):
+    state, tau, scene = _inputs(dev, seed, n)
     s31 = engine_v2.pack_state(state)
-    p40 = engine_v2.pack_params(scene, N)
+    p40 = engine_v2.pack_params(scene, n)
     t9 = tau.T.contiguous()
     out, imp = cuda_engine.step_packed_cuda(s31, p40, t9, cfg, 0.02)
     ref, ref_imp = engine_v2.step_packed(s31, p40, t9, cfg, 0.02)
@@ -78,6 +78,27 @@ def test_kernel_matches_plain_on_card(dev, solver_type):
         err = (out[a:b] - ref[a:b]).abs()
         assert bool((err <= atol + rtol * ref[a:b].abs()).all()), (name, float(err.max()))
     assert bool(((imp - ref_imp).abs() <= 1e-4 + 1e-4 * ref_imp.abs()).all())
+
+
+@pytest.mark.parametrize("solver_type", [0, 1])
+def test_kernel_matches_plain_on_card(dev, solver_type):
+    _check_against_plain(dev, SolverConfig(solver_type=solver_type, substeps=4,
+                                           solver_iterations=8), N)
+
+
+@pytest.mark.parametrize("n", [37, 4097, 1000])
+def test_kernel_matches_plain_at_ragged_n(dev, n):
+    """N that the block's 32 envs do not divide: the last block's spare
+    lanes compute on a copy of the last env, reach every barrier and store
+    nothing."""
+    _check_against_plain(dev, SolverConfig(solver_type=1, substeps=4, solver_iterations=8),
+                         n, seed=n)
+
+
+def test_every_env_resident_at_once(dev):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    occ = cuda_engine.occupancy()
+    assert occ["blocks_per_sm"] * sms * occ["envs_per_block"] >= 8192, occ
 
 
 def test_cuda_tensors_never_take_the_plain_version(dev, monkeypatch):

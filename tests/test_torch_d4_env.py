@@ -118,7 +118,7 @@ def test_d4_env_matches_reference(case, monkeypatch):
     monkeypatch.setattr(jenv, "_batched_physics_step_v2", _JIT_PHYSICS)
     cfg = case_config(preset, changes)
     je = jenv.TrifingerEnv(config=dict(cfg, engine="soa"), verbose=False)
-    te = tenv.TrifingerEnv(config=cfg, verbose=False, dtype=torch.float64)
+    te = tenv.TrifingerEnv(config=cfg, device="cpu", verbose=False, dtype=torch.float64)
     st = te.static
     assert (st.obs_dim, st.state_dim) == (je.static.obs_dim, je.static.state_dim)
     tparams = te.params if level is None else te.params.with_curriculum_level(level)

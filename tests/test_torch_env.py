@@ -61,7 +61,7 @@ def test_compute_torque(mode):
     adim = 18 if mode == "position_impedance" else 9
     cfg = {"num_instances": N, "command_mode": mode}
     je = jenv.TrifingerEnv(config=dict(cfg, engine="soa"), verbose=False)
-    te = tenv.TrifingerEnv(config=cfg, verbose=False)
+    te = tenv.TrifingerEnv(config=cfg, device="cpu", verbose=False)
     rng = np.random.default_rng(1)
     action = rng.uniform(-1.2, 1.2, (N, adim)).astype(np.float32)
     q = rng.uniform(-1, 1, (N, 9)).astype(np.float32)
@@ -152,7 +152,7 @@ def test_flagship_configs_build_with_reference_widths(extra):
     """The flagship recipe's features build (they raised NotImplementedError
     before the port had them) with the reference's obs and state widths."""
     cfg = dict({"num_instances": 2, "asymmetric_obs": True}, **extra)
-    te = tenv.TrifingerEnv(config=cfg, verbose=False)
+    te = tenv.TrifingerEnv(config=cfg, device="cpu", verbose=False)
     je = jenv.TrifingerEnv(config=dict(cfg, engine="soa"), verbose=False)
     assert (te.static.obs_dim, te.static.state_dim) == (je.static.obs_dim, je.static.state_dim)
     assert te.get_obs_dim() == je.get_obs_dim() and te.get_state_dim() == je.get_state_dim()
@@ -175,7 +175,7 @@ def test_slice_matches_reference_over_golden_actions(fname):
     data, meta = load_golden(fname)
     cfg = golden_config(meta)
     je = jenv.TrifingerEnv(config=dict(cfg, engine="soa"), verbose=False)
-    te = tenv.TrifingerEnv(config=cfg, verbose=False, dtype=torch.float64)
+    te = tenv.TrifingerEnv(config=cfg, device="cpu", verbose=False, dtype=torch.float64)
     with jax.enable_x64(True):
         jparams = jax.tree.map(
             lambda x: x.astype(jnp.float64) if jnp.issubdtype(x.dtype, jnp.floating) else x,
@@ -201,3 +201,24 @@ def test_slice_matches_reference_over_golden_actions(fname):
             assert np.array_equal(np.asarray(jstate.goal_reset_buf),
                                   state.goal_reset_buf.numpy())
             assert max_diff(jstate.goal_pose_cm, state.goal_pose_cm) < 2e-4
+
+
+def test_env_defaults_to_the_card(monkeypatch):
+    """Without a ``device`` the env, its base class and ``build_params`` ask
+    for ``cuda:0``; without a card that is an error naming ``device="cpu"``,
+    never a silent CPU run."""
+    from leibnizgym_tpu_torch.envs.env_base import EnvBase
+    from leibnizgym_tpu_torch.utils.helpers import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {"num_instances": 2, "command_mode": "torque"}
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tenv.TrifingerEnv(config=cfg, verbose=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        EnvBase({"a": 1}, {"b": 1}, {}, cfg, verbose=False)
+    env = tenv.TrifingerEnv(config=cfg, device="cpu", verbose=False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tenv.build_params(env.static, env._object_dims)
+    assert env.device == torch.device("cpu")

@@ -49,7 +49,7 @@ def _start(fname):
         "sim": {"substeps": meta["substeps"],
                 "physx": {"num_position_iterations": meta["iterations"],
                           "tpu_solver": meta.get("solver", "pgs")}},
-    }, verbose=False)
+    }, device="cpu", verbose=False)
     # the reference env's keys: reset() splits the seed key, env_reset splits
     # again and draws the init block; each step splits the state key in 3
     sub = jax.random.split(jax.random.PRNGKey(meta["seed"]))[1]

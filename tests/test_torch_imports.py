@@ -1,9 +1,12 @@
-"""The port imports no JAX.
+"""The port imports no JAX and nothing of the JAX package.
 
 The machine the port runs on has no JAX, so every module of
 ``leibnizgym_tpu_torch`` and ``chip_smoke.py`` must import without it, and
-a CPU env step must run without it. A subprocess blocks ``jax``, ``flax``,
-``optax`` and ``orbax`` with a ``sys.meta_path`` finder, imports every
+a CPU env step must run without it. The port keeps its own copies of what it
+needs from the JAX package (held to it by ``test_torch_copies.py``), so the
+JAX package ``leibnizgym_tpu`` itself is blocked too, by its exact top-level
+name. A subprocess blocks ``jax``, ``flax``, ``optax``, ``orbax`` and
+``leibnizgym_tpu`` with a ``sys.meta_path`` finder, imports every
 module of the port (the learner, runner, training entry and CLI among
 them) and ``chip_smoke.py``, steps a 2-env ``TrifingerEnv`` on D1 and on
 the D4 + DR preset, reads a shipped ``.npz`` policy and trains a 2-env
@@ -17,7 +20,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "leibnizgym_tpu_torch")
-BLOCKED = ("jax", "flax", "optax", "orbax")
+BLOCKED = ("jax", "flax", "optax", "orbax", "leibnizgym_tpu")
 
 _GUARDED = r'''
 import importlib, importlib.util, pkgutil, sys
@@ -49,7 +52,7 @@ torch.set_num_threads(1)
 env = TrifingerEnv(config={"num_instances": 2, "command_mode": "torque",
                            "asymmetric_obs": True,
                            "sim": {"substeps": 1, "physx": {"num_position_iterations": 2}}},
-                   verbose=False)
+                   device="cpu", verbose=False)
 task = VecTaskPython(env)
 obs = task.reset()
 obs, reward, dones, _ = task.step(torch.zeros(2, 9))
@@ -69,7 +72,7 @@ d4 = copy.deepcopy(GYM_PRESETS["trifinger_difficulty_4_curriculum_dr"])
 d4.pop("rlg_overrides")
 d4.update(num_instances=2, asymmetric_obs=True)
 d4["sim"].update(substeps=1, physx={"num_position_iterations": 2})
-env = TrifingerEnv(config=d4, verbose=False)
+env = TrifingerEnv(config=d4, device="cpu", verbose=False)
 obs = env.reset()
 obs, reward, dones, info = env.step(torch.zeros(2, 9))
 assert obs.shape == (2, 89) and env.get_state().shape == (2, 161)
@@ -107,7 +110,8 @@ def test_port_imports_no_jax():
 
 
 def test_no_jax_import_lines():
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|orbax)\b")
+    # \b after leibnizgym_tpu excludes leibnizgym_tpu_torch
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|orbax|leibnizgym_tpu)\b")
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _, files in os.walk(PORT):
         paths += [os.path.join(base, f) for f in files if f.endswith(".py")]

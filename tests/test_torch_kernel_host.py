@@ -1,14 +1,19 @@
 """The CUDA kernel's own arithmetic, compiled for the host.
 
 csrc/physics_step.cu compiles as plain C++ (``g++ -x c++``), where
-``leibniz_physics_step_host`` runs the kernel's per-env function over the
-envs in a loop. Built in float64 (``-DLG_REAL=double``) it is held to the
-plain PyTorch step (``engine_v2.step_packed``) in float64 at 1e-12: the two
-evaluate the same formulas in the same order, so only the last bits of
-libm's and PyTorch's sin/cos/sqrt differ (measured 1.8e-15). This covers
-every branch the card runs (both solvers, both object shapes, each gate off,
-per-env params on both arena profiles); the card itself compares the float32
-kernel with the plain version in chip_smoke.py.
+``leibniz_physics_step_host`` runs the kernel's phases (row build, sweep,
+tip impulses) for one env after another. Built in float64
+(``-DLG_REAL=double``) it is held to the plain PyTorch step
+(``engine_v2.step_packed``) in float64 at 1e-11. The kernel sweeps stored
+rows in mass-normalised velocities, stores 1/w where the plain version
+divides by w, and sums each row's products in its own order, so the two
+differ by float64 rounding that the contact solve amplifies: measured
+9.8e-14 at most over these cases (a formula-for-formula version of the
+kernel differed by 1.8e-15); the bound leaves 100x. This covers every branch the
+card runs (both solvers, both object shapes, each gate off, per-env params
+on both arena profiles, an N that is not a multiple of the card's 32-env
+blocks); the card itself compares the float32 kernel with the plain version
+in chip_smoke.py.
 
 The library is built once into build/leibnizgym_tpu_torch/host-<hash>/
 under a file lock, so parallel test workers share one build. It is a test
@@ -25,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from leibnizgym_tpu.models import trifinger as tf_model
+from leibnizgym_tpu_torch.models import trifinger as tf_model
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops.engine_v2 import pack_params, pack_state, step_packed
 from leibnizgym_tpu_torch.ops.types import SolverConfig
@@ -34,7 +39,7 @@ from test_torch_common import random_physics, scene_arrays, torch_inputs
 torch.set_num_threads(1)
 
 N = 16
-TOL = 1e-12
+TOL = 1e-11
 FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-DLG_REAL=double")
 Consts64 = cuda_engine._consts_struct(ctypes.c_double)
 
@@ -122,6 +127,26 @@ def test_host_kernel_matches_plain_on_dr_scenes(host_lib, case, shape):
     imp = torch.empty_like(ref_imp)
     host_lib.leibniz_physics_step_host(
         s31.data_ptr(), p40.data_ptr(), t9.data_ptr(), out.data_ptr(), imp.data_ptr(), N,
+        ctypes.byref(cuda_engine.kernel_consts(cfg, 0.02, Consts64)))
+    assert float((out - ref).abs().max()) < TOL
+    assert float((imp - ref_imp).abs().max()) < TOL
+    assert float(imp.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("case", ["pgs_s2_i4", "tgs_s4_i8"])
+def test_host_kernel_matches_plain_at_a_ragged_n(host_lib, case):
+    """37 envs: one full block of 32 and a ragged one of 5 on the card; on
+    the host every env runs the same phases."""
+    n = 37
+    cfg = SolverConfig(**SOLVERS[case])
+    state, tau, scene = torch_inputs(random_physics(n, 41),
+                                     scene_arrays(n, 42, per_env=True), torch.float64)
+    s31, p40, t9 = pack_state(state), pack_params(scene, n), tau.T.contiguous()
+    ref, ref_imp = step_packed(s31, p40, t9, cfg, 0.02)
+    out = torch.empty_like(s31)
+    imp = torch.empty_like(ref_imp)
+    host_lib.leibniz_physics_step_host(
+        s31.data_ptr(), p40.data_ptr(), t9.data_ptr(), out.data_ptr(), imp.data_ptr(), n,
         ctypes.byref(cuda_engine.kernel_consts(cfg, 0.02, Consts64)))
     assert float((out - ref).abs().max()) < TOL
     assert float((imp - ref_imp).abs().max()) < TOL

@@ -134,7 +134,7 @@ def test_rollout_matches_reference_loop():
            "sim": {"substeps": 2, "physx": {"num_position_iterations": 4,
                                             "tpu_solver": "tgs"}}}
     je = jenv.TrifingerEnv(config=dict(cfg, engine="soa"), verbose=False)
-    te = tenv.TrifingerEnv(config=cfg, verbose=False, dtype=torch.float64)
+    te = tenv.TrifingerEnv(config=cfg, device="cpu", verbose=False, dtype=torch.float64)
     pcfg = tppo.PPOConfig(horizon=horizon)
     noise = np.random.default_rng(7).normal(size=(horizon, n, ACT))
 

@@ -81,7 +81,7 @@ def _reset_from_port(te, key):
 
 def test_train_iteration_matches_reference_on_the_env(monkeypatch):
     je = jenv.TrifingerEnv(config=dict(ENV_CFG, engine="soa"), verbose=False)
-    te = tenv.TrifingerEnv(config=ENV_CFG, verbose=False, dtype=torch.float64)
+    te = tenv.TrifingerEnv(config=ENV_CFG, device="cpu", verbose=False, dtype=torch.float64)
     jcfg = jppo.PPOConfig(horizon=H, mini_epochs=2, cv_mini_epochs=2, minibatch_size=32,
                           cv_minibatch_size=32, units=(64, 32))
     tcfg = port_config(jcfg)
