@@ -47,9 +47,24 @@ Phases (each prints its own lines; any failure exits non-zero):
     1024 envs for one 750-step episode, each under the recipe it was trained
     on: the per-goal solve rate of tests/test_shipped_policies.py must be
     >= 0.90 with >= 200 goals solved; the raw and censoring-corrected rates
-    and the median solve time print beside the JAX package's recorded ones.
-The last two lines are the kernels' JSON record (launches, times, flops,
-bytes and bound from phase 6) and the device JSON line.
+    and the median solve time print beside the JAX package's recorded ones;
+ 8. bfloat16 training: phase 5's preset with ``mixed_precision=True`` through
+    ``Runner.train`` for a warm-up epoch and 3 timed ones at full widths.
+    Checks: 1 + 32 * 4 kernel launches, finite losses, KL and lr in range,
+    the parameters moved, the ``final`` checkpoint restored bit-identically,
+    and the trained towers' bfloat16 forward against their float32 forward
+    on a seeded batch within ``BF16_REL``; then its epoch split beside phase
+    5's float32 one;
+ 9. the NaN path: phase 5's preset with ``nan_telemetry=True``: two clean
+    epochs (every ``nan/*`` key, every ``*_fin`` 1, ``kl_first_bad`` -1, the
+    loop at depth 1); then one env's cube is given a finite but degenerate
+    velocity (``DEGENERATE_LINVEL``) before epoch 3, through a hook on
+    ``Runner._train_iter``. Checks: the halt at epoch 3, ``nan_prev_ts.pt``
+    holding epoch 2's state, ``nan_replay`` naming step 0 and that env,
+    ``nan_microscope`` reproducing the blow-up on the card, and the kernel
+    and the plain version going non-finite at the same substep of its walk.
+The last two lines are the kernels' JSON record (times, flops, bytes and
+bound from phase 6; launches from phase 8) and the device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
 
@@ -77,6 +92,8 @@ try:
     from leibnizgym_tpu_torch.ops import cuda_engine
     from leibnizgym_tpu_torch.ops.engine_v2 import pack_params, pack_state, step_packed
     from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
+    from leibnizgym_tpu_torch.scripts import nan_microscope, nan_replay
+    from leibnizgym_tpu_torch.utils.helpers import smi
     from leibnizgym_tpu_torch.scripts.eval_policy import (
         goal_solve_stats,
         record_goals,
@@ -136,14 +153,6 @@ def check(ok: bool, what: str):
     if not ok:
         failures.append(what)
         print(f"FAIL: {what}", flush=True)
-
-
-def smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "nvidia-smi: n/a"
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -577,8 +586,8 @@ def phase_training(dev, num_envs: int = 8192, epochs: int = EPOCHS):
           f"param_within_1e-6={within:.6f} lr_equal={lr_same} within_tol={ok}", flush=True)
     check(ok, "learner step on the card vs the CPU")
 
-    print_epoch_split("train", marks, epochs, h, n)
-    return {"launches": launches, "max_abs_err": max(diffs.values())}
+    split = print_epoch_split("train", marks, epochs, h, n)
+    return {"launches": launches, "max_abs_err": max(diffs.values()), "split": split}
 
 
 def check_epoch_metrics(tag: str, history: list, epochs: int, h: int, n: int) -> list:
@@ -627,9 +636,10 @@ def marked_train_iter(history: list, marks: list):
     return train_iter
 
 
-def print_epoch_split(tag: str, marks: list, epochs: int, h: int, n: int):
+def print_epoch_split(tag: str, marks: list, epochs: int, h: int, n: int) -> dict:
     """Epoch time (start to next start) and its split into rollout / GAE /
-    update, epochs 2.. (1 = warm-up), next to the card's name and limit."""
+    update, epochs 2.. (1 = warm-up), next to the card's name and limit.
+    Returns the medians (ms) by name, the epoch's under "epoch"."""
     per_epoch = [marks[i:i + 4] for i in range(0, len(marks), 4)]
     check(len(per_epoch) == epochs and all([m[0] for m in p] == ["start", "rollout", "gae", "update"]
                                             for p in per_epoch), f"{tag}: phase marks out of order")
@@ -645,6 +655,7 @@ def print_epoch_split(tag: str, marks: list, epochs: int, h: int, n: int):
               f"max={max(xs):.3f} n={len(xs)}", flush=True)
     print(f"{smi()} {tag} env_steps_per_s={h * n / (med / 1e3):.1f} "
           f"(32 x {n} / median epoch)", flush=True)
+    return {"epoch": med, **{k: float(np.median(v)) for k, v in split.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -795,6 +806,197 @@ def phase_replay(dev):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+BF16_EPOCHS = 4  # a warm-up epoch, then 3 timed epochs
+# The bfloat16 towers against their float32 forward on the same weights:
+# bfloat16 keeps 8 mantissa bits, so each layer rounds its input, weight and
+# output by up to 2^-9 relative; over four layers and the head the outputs
+# moved by 0.53% (mu) and 0.75% / 0.66% (values) of their largest magnitude
+# on random D1-width towers on the CPU. Bound: 2% of the largest magnitude.
+BF16_REL = 2e-2
+
+
+def d1_config(num_envs: int, **agent):
+    """The D1 preset with the asymmetric agent config at ``num_envs``, seed
+    SEED, with ``agent`` set in the agent's config."""
+    cfg = default_config()  # gym = trifinger_difficulty_1, rlg = asymm
+    cfg["args"]["num_envs"] = num_envs
+    cfg["args"]["seed"] = SEED
+    cfg = update_cfg(cfg)
+    cfg["rlg"]["params"]["config"].update(agent)
+    return cfg
+
+
+def check_d1_widths(tag: str, runner):
+    pcfg, st = runner.ppo_cfg, runner.static
+    widths = (st.obs_dim, st.state_dim, pcfg.units, pcfg.minibatch_size,
+              pcfg.cv_minibatch_size, pcfg.mini_epochs, pcfg.cv_mini_epochs, pcfg.horizon)
+    check(widths == (41, 113, (400, 200, 100), 8192, 8192, 4, 4, 32),
+          f"{tag} is not the D1 preset at full widths: {widths}")
+
+
+def bf16_vs_f32(runner, n: int = 8192) -> dict:
+    """The trained towers' bfloat16 forward against their float32 forward on
+    a seeded batch: max |diff| over the largest |float32 output|, per
+    output."""
+    rng = np.random.default_rng(SEED)
+    dev = runner.device
+    obs = torch.as_tensor(rng.uniform(-5, 5, (n, 41)).astype(np.float32), device=dev)
+    states = torch.as_tensor(rng.uniform(-5, 5, (n, 113)).astype(np.float32), device=dev)
+    out = {}
+    with torch.no_grad():
+        for names, tower, x in ((("mu", "log_std", "value"), runner.ts.actor_critic, obs),
+                                (("cv_value",), runner.ts.central_value, states)):
+            f32 = copy.deepcopy(tower)
+            f32.dtype = torch.float32
+            ours, theirs = tower(x), f32(x)
+            if torch.is_tensor(ours):
+                ours, theirs = (ours,), (theirs,)
+            for name, a, b in zip(names, ours, theirs):
+                check(a.dtype == torch.float32, f"bf16 {name} is not float32")
+                out[name] = float((a - b).abs().max() / b.abs().max())
+    return out
+
+
+def phase_bf16(dev, f32_split: dict, num_envs: int = 8192, epochs: int = BF16_EPOCHS):
+    """Phase 5's preset with bfloat16 networks through Runner.train."""
+    cfg = d1_config(num_envs, mixed_precision=True)
+    marks, history = [], []
+    with tempfile.TemporaryDirectory() as logdir:
+        runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                        seed=SEED, device=dev)
+        pcfg, st = runner.ppo_cfg, runner.static
+        check_d1_widths("phase 8", runner)
+        runner._train_iter = marked_train_iter(history, marks)
+
+        # this slice's main path, counted
+        cuda_engine.launch_count = 0
+        runner.reset()
+        check(pcfg.network_dtype == "bfloat16" and runner.ts.actor_critic.dtype == torch.bfloat16
+              and runner.ts.central_value.dtype == torch.bfloat16, "phase 8 towers are not bf16")
+        start = {k: v.clone() for k, v in runner._ckpt_payload()["ac_state_dict"].items()}
+        t0 = time.perf_counter()
+        runner.train(max_epochs=epochs)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = cuda_engine.launch_count
+        h, n = pcfg.horizon, st.num_envs
+        check(launches == 1 + h * epochs, f"bf16 launch_count {launches} != {1 + h * epochs}")
+        check_epoch_metrics("bf16", history, epochs, h, n)
+        trained = runner._ckpt_payload()
+        check(all(v.dtype == torch.float32 for v in trained["ac_state_dict"].values()),
+              "bf16 parameters are not float32")
+        check(any(not torch.equal(start[k], v) for k, v in trained["ac_state_dict"].items()),
+              "bf16: the parameters did not move")
+        fresh = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                       seed=SEED + 1, device=dev)
+        fresh.restore(os.path.join(runner.nn_dir, "final"))
+        restored = fresh._ckpt_payload()
+        same = all(torch.equal(restored[part][k], v) for part in ("ac_state_dict", "cv_state_dict")
+                   for k, v in trained[part].items())
+        check(same and restored["epoch"] == epochs, "bf16 final checkpoint did not restore exactly")
+        rel = bf16_vs_f32(runner)
+        ok = max(rel.values()) <= BF16_REL
+        print(f"bf16 epochs={epochs} launches={launches} wall_s={wall_s:.3f} "
+              f"restore_bit_identical={same} bf16_vs_f32 " + " ".join(
+                  f"{k}={v:.3e}" for k, v in rel.items()) + f" bound={BF16_REL} within_tol={ok}",
+              flush=True)
+        check(ok, "bf16 towers vs their float32 forward")
+        for w in (runner, fresh):
+            if w.writer is not None:
+                w.writer.close()
+    split = print_epoch_split("bf16", marks, epochs, h, n)
+    print(f"{smi()} bf16_vs_f32 " + " ".join(
+        f"{k}_ms bf16={split[k]:.3f} f32={f32_split[k]:.3f} ratio={split[k] / f32_split[k]:.3f}"
+        for k in split), flush=True)
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+# A finite but degenerate state: the cube flung at 1e30 m/s along each axis.
+# The first substep moves it to ~5e27 m; the next one's contact queries
+# square that past float32's range, so the plain step goes non-finite at
+# substep 1 (measured on the CPU: the same for 1e25 to 1e37).
+DEGENERATE_LINVEL = 1e30
+NAN_ENV = 4321
+NAN_KEYS = ("obs_fin", "obs_max", "states_fin", "states_max", "act_fin", "act_max", "rew_fin",
+            "rew_max", "val_fin", "val_max", "neglogp_max", "logstd_min", "logstd_max",
+            "envstate_fin", "adv_fin", "adv_max", "ret_max", "grad_fin", "grad_max",
+            "kl_mb_fin", "kl_first_bad", "params_fin")
+
+
+def phase_nan(dev, num_envs: int = 8192):
+    """Phase 5's preset with nan_telemetry; the injected blow-up, the halt,
+    the dump, the replay and the microscope on the card."""
+    cfg = d1_config(num_envs, nan_telemetry=True)
+    history, snapshot = [], {}
+    with tempfile.TemporaryDirectory() as logdir:
+        runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                        seed=SEED, device=dev)
+        check_d1_widths("phase 9", runner)
+        check(runner.ppo_cfg.host_pipeline_depth > 1, "phase 9 should configure depth > 1")
+
+        def train_iter(pcfg, static, env_params, ts):
+            metrics = ppo.train_iteration(pcfg, static, env_params, ts)
+            history.append(metrics)
+            if ts.epoch == 2:
+                snapshot["ac"] = {k: v.clone() for k, v in ts.actor_critic.state_dict().items()}
+                ts.carry.env_state.physics.cube_linvel[NAN_ENV] = DEGENERATE_LINVEL
+            return metrics
+
+        runner._train_iter = train_iter
+        cuda_engine.launch_count = 0
+        runner.reset()
+        runner.train(max_epochs=6)
+        torch.cuda.synchronize()
+        train_launches = cuda_engine.launch_count
+        h = runner.ppo_cfg.horizon
+        check(len(history) == 3, f"nan: {len(history)} epochs dispatched, not 3 (depth 1, "
+              "halt at epoch 3)")
+        check(train_launches == 1 + 3 * h, f"nan launch_count {train_launches} != {1 + 3 * h}")
+        for e, m in enumerate(history[:2], 1):
+            row = {k: float(m.get("nan/" + k, float("nan"))) for k in NAN_KEYS}
+            ok = (all("nan/" + k in m for k in NAN_KEYS)
+                  and all(v == 1.0 for k, v in row.items() if k.endswith("_fin"))
+                  and row["kl_first_bad"] == -1.0)
+            print(f"nan epoch={e} " + " ".join(f"{k}={v:.4g}" for k, v in row.items())
+                  + f" clean={ok}", flush=True)
+            check(ok, f"nan telemetry of clean epoch {e}")
+        bad = {k: float(v) for k, v in history[2].items() if k.startswith("nan/")}
+        print("nan epoch=3 " + " ".join(f"{k[4:]}={v:.4g}" for k, v in bad.items()), flush=True)
+        halt = torch.load(os.path.join(runner.nn_dir, "nan_halt"), weights_only=True)
+        check(halt["epoch"] == 3, f"nan_halt holds epoch {halt['epoch']}, not 3")
+        dump = torch.load(os.path.join(runner.logdir, nan_replay.DUMP), weights_only=True)
+        check(dump["epoch"] == 2 and all(torch.equal(dump["ac_state_dict"][k], v.cpu())
+                                         for k, v in snapshot["ac"].items()),
+              "nan_prev_ts.pt does not hold epoch 2's state")
+
+        # the tools on the card; the microscope's walk launches the kernel
+        cuda_engine.launch_count = 0
+        npz = os.path.join(logdir, "nan_microscope.npz")
+        found = nan_replay.replay(runner.logdir, steps=4, out=npz, device=dev)
+        check(found is not None and found["step"] == 0 and found["env_index"] == NAN_ENV,
+              f"nan_replay found {found}, not step 0 env {NAN_ENV}")
+        seen = nan_microscope.microscope(npz, runner.logdir, device=dev) if found else None
+        first = (seen or {}).get("first_bad_substep", {})
+        tools_launches = cuda_engine.launch_count
+        ok = (seen is not None and first.get("kernel") is not None
+              and first.get("kernel") == first.get("plain"))
+        print(f"nan halt_epoch={halt['epoch']} dump_epoch={dump['epoch']} replay={found} "
+              f"microscope_first_bad_substep={first} tools_launches={tools_launches} "
+              f"same_substep={ok}", flush=True)
+        check(ok, "nan microscope: the kernel and the plain version differ on the blow-up")
+        if runner.writer is not None:
+            runner.writer.close()
+    return {"launches": train_launches + tools_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -822,18 +1024,30 @@ def main() -> int:
     check(occ["blocks_per_sm"] * sms >= blocks,
           f"8192 envs need {blocks} blocks, {occ['blocks_per_sm']} x {sms} resident")
 
-    phase_kernel_vs_plain(dev)
-    phase_golden(dev)
-    records = {"slice": phase_slice(dev), "train": phase_training(dev), "d4": phase_d4(dev)}
-    phase_replay(dev)
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        print(f"{name} seconds={time.perf_counter() - t:.1f} "
+              f"since_start={time.perf_counter() - t0:.1f}", flush=True)
+        return out
+
+    timed("phase 2", phase_kernel_vs_plain, dev)
+    timed("phase 3", phase_golden, dev)
+    records = {"slice": timed("phase 4", phase_slice, dev),
+               "train": timed("phase 5", phase_training, dev),
+               "d4": timed("phase 6", phase_d4, dev)}
+    timed("phase 7", phase_replay, dev)
+    bf16 = timed("phase 8", phase_bf16, dev, records["train"].pop("split"))
+    timed("phase 9", phase_nan, dev)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
     print(smi(), flush=True)
-    # this slice's path (phase 6) gives the launches and times; the error is
-    # the worst of phases 4-6
-    record = dict(records["d4"], max_abs_err=max(r["max_abs_err"] for r in records.values()))
+    # phase 6 gives the times and the bound, this slice's path (phase 8) the
+    # launches; the error is the worst of phases 4-6
+    record = dict(records["d4"], launches=bf16["launches"],
+                  max_abs_err=max(r["max_abs_err"] for r in records.values()))
     print(json.dumps({"kernels": [{
         "name": "physics_step", "route": "cuda",
         "source": "leibnizgym_tpu_torch/csrc/physics_step.cu",

@@ -184,6 +184,31 @@ class EnvState:
         return self.goal_pose_cm.T
 
 
+def env_state_tensors(state: EnvState) -> Dict[str, torch.Tensor]:
+    """Every tensor of ``state`` under a flat name: the fields of
+    ``physics`` and ``scene`` prefixed with ``physics_`` / ``scene_``
+    (``physics_q``, ``scene_cube_mass``), the others under their own name
+    (``goal_pose_cm``, ``reset_buf``). ``frames``, a host int, is left out."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, (PhysicsState, SceneParams)):
+            out.update({f"{f.name}_{k}": x for k, x in v.fields().items()})
+        elif torch.is_tensor(v):
+            out[f.name] = v
+    return out
+
+
+def env_state_from_tensors(tensors: Dict[str, torch.Tensor], frames: int) -> EnvState:
+    """The inverse of ``env_state_tensors``."""
+    nested = {"physics": PhysicsState, "scene": SceneParams}
+    kw = {name: cls(**{f.name: tensors[f"{name}_{f.name}"] for f in dataclasses.fields(cls)})
+          for name, cls in nested.items()}
+    kw.update({f.name: tensors[f.name] for f in dataclasses.fields(EnvState)
+               if f.name not in nested and f.name != "frames"})
+    return EnvState(frames=frames, **kw)
+
+
 # ---------------------------------------------------------------------------
 # Builders
 # ---------------------------------------------------------------------------

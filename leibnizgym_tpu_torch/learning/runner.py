@@ -19,6 +19,13 @@ numbers: both state dicts, both optimizer states, ``lr``, ``epoch``,
 state is not saved; envs reset on resume, as in the reference. ``restore``
 also takes the weights-only ``.npz`` policies of
 ``leibnizgym_tpu_torch/resources/policies/``.
+
+With ``nan_telemetry`` the loop runs at depth 1 and keeps the whole train
+state before each epoch (``nan_dump_payload``: the checkpoint payload, the
+rollout carry and the generator's state, cloned on the device). A halt on a
+non-finite KL prints the epoch's ``nan/*`` metrics and writes that state as
+``nan_prev_ts.pt`` into the logdir, beside ``env_config.yaml`` and
+``agent_config.yaml``, for ``scripts/nan_replay.py``.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import yaml
 from leibnizgym_tpu_torch.utils.helpers import resolve_device as _resolve_device
 from leibnizgym_tpu_torch.utils.message import print_error, print_info, print_notify, print_warn
 from leibnizgym_tpu_torch.convert import checkpoint_from_npz
-from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
+from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv, env_state_tensors
 from leibnizgym_tpu_torch.learning.ppo import (
     PPOConfig,
     TrainState,
@@ -186,6 +193,25 @@ class Runner:
             payload["curriculum_level"] = self._cur_level
         return payload
 
+    def nan_dump_payload(self) -> dict:
+        """The whole train state, cloned on the device: the checkpoint
+        payload, the rollout carry (every env state tensor by its
+        ``env_state_tensors`` name, ``frames``, obs, states, episode
+        accumulators) and the state of the train state's generator, which
+        draws the next epoch's action noise, env draws and permutations."""
+        ts = self.ts
+        carry = ts.carry
+        payload = self._ckpt_payload(clone=True)
+        payload["carry"] = {
+            "env_state": {k: v.clone() for k, v in env_state_tensors(carry.env_state).items()},
+            "frames": carry.env_state.frames,
+            "obs": carry.obs.clone(), "states": carry.states.clone(),
+            "ep_return": carry.ep_return.clone(), "ep_len": carry.ep_len.clone(),
+        }
+        payload["generator_state"] = ts.generator.get_state()
+        payload["generator_device"] = str(ts.generator.device)
+        return payload
+
     def save(self, name: str, payload: Optional[dict] = None) -> str:
         """Write ``payload`` (default: the current learner state) to
         ``nn/<name>``; the train loop passes the snapshot of the epoch whose
@@ -274,8 +300,10 @@ class Runner:
         t_start = time.time()
         if watchdog_timeout:
             self._start_watchdog(max(watchdog_timeout, self._FIRST_EPOCH_WATCHDOG_FLOOR))
-        depth = max(1, cfg.host_pipeline_depth)
+        # nan_telemetry needs the state just before the first bad epoch
+        depth = 1 if cfg.nan_telemetry else max(1, cfg.host_pipeline_depth)
         pending = collections.deque()  # (epoch, device metrics, that epoch's snapshot)
+        prev_state = None  # nan_telemetry: the state before the running epoch
         self._best_reward = -float("inf")
         last_t = time.time()
         stop = False
@@ -323,7 +351,13 @@ class Runner:
             if not np.isfinite(float(metrics["info/kl"])):
                 # the parameters are garbage once kl is non-finite: halt, and
                 # keep the FIRST bad epoch's state, not the pipeline head
-                print_error(f"non-finite kl at epoch {epoch}; halting")
+                print_error(f"non-finite kl at epoch {epoch}; halting. " + " ".join(
+                    f"{k}={float(v):.3g}" for k, v in sorted(metrics.items())
+                    if k.startswith("nan/")))
+                if prev_state is not None:
+                    path = os.path.join(self.logdir, "nan_prev_ts.pt")
+                    torch.save(_to_cpu(prev_state), path)
+                    print_error(f"pre-nan train state dumped to {path}")
                 self.save("nan_halt", snapshot)
                 return True
             return False
@@ -348,6 +382,8 @@ class Runner:
 
         try:
             for epoch in range(start_epoch + 1, epochs + 1):
+                if cfg.nan_telemetry:
+                    prev_state = self.nan_dump_payload()
                 metrics = self._train_iter(cfg, self.static, self.env_params, self.ts)
                 # at depth 1 the epoch is processed now, on the current state
                 pending.append((epoch, metrics,

@@ -8,7 +8,13 @@ initialised with variance scaling 0.02, and a central value net of the same
 shape on the privileged state. Layer names follow the flax modules
 (``actor_i``, ``critic_i``, ``mu``, ``value``, ``log_std``, ``dense_i``) so
 ``convert.flax_params_to_state_dict`` loads reference weights directly.
-The matmuls are plain ``nn.Linear``.
+The matmuls are plain ``nn.Linear`` parameters on cuBLAS.
+
+``dtype`` is the towers' compute dtype, as flax ``nn.Dense(dtype=...)``
+takes it: the parameters stay float32; with ``torch.bfloat16`` each layer
+casts its input, weight and bias to bfloat16, and the product, the bias add
+and the ELU run in bfloat16; ``mu`` and ``value`` come out as float32. The
+``log_std`` clip stays float32.
 """
 
 from __future__ import annotations
@@ -50,9 +56,17 @@ def _add_tower(module: nn.Module, in_dim: int, units: Sequence[int], prefix: str
     return names
 
 
-def _run_tower(module: nn.Module, names, x):
+def _dense_in(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` in ``dtype``: the product rounded to it, then the bias
+    added in it (flax Dense's ``dot_general`` then ``+ bias``)."""
+    if dtype == torch.float32:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + layer.bias.to(dtype)
+
+
+def _run_tower(module: nn.Module, names, x, dtype=torch.float32):
     for name in names:
-        x = F.elu(getattr(module, name)(x))
+        x = F.elu(_dense_in(getattr(module, name), x, dtype))
     return x
 
 
@@ -63,8 +77,10 @@ class ActorCritic(nn.Module):
     def __init__(self, obs_dim: int, action_dim: int,
                  units: Sequence[int] = (400, 200, 100), mu_init_scale: float = 0.02,
                  log_std_min: float = -20.0, log_std_max: float = 2.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.log_std_min = log_std_min
         self.log_std_max = log_std_max
         self._actor = _add_tower(self, obs_dim, units, "actor", generator)
@@ -74,9 +90,10 @@ class ActorCritic(nn.Module):
         self.value = _dense(units[-1], 1, 2.0, generator)
 
     def forward(self, obs: torch.Tensor):
-        mu = self.mu(_run_tower(self, self._actor, obs))
+        dt = self.dtype
+        mu = _dense_in(self.mu, _run_tower(self, self._actor, obs, dt), dt).float()
         log_std = torch.clamp(self.log_std, self.log_std_min, self.log_std_max)
-        value = self.value(_run_tower(self, self._critic, obs))
+        value = _dense_in(self.value, _run_tower(self, self._critic, obs, dt), dt).float()
         return mu, log_std.expand_as(mu), value[..., 0]
 
 
@@ -84,13 +101,16 @@ class CentralValue(nn.Module):
     """Privileged-state value network (asymm.yaml central_value_config)."""
 
     def __init__(self, state_dim: int, units: Sequence[int] = (400, 200, 100),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self._hidden = _add_tower(self, state_dim, units, "dense", generator)
         self.value = _dense(units[-1], 1, 2.0, generator)
 
     def forward(self, states: torch.Tensor):
-        return self.value(_run_tower(self, self._hidden, states))[..., 0]
+        h = _run_tower(self, self._hidden, states, self.dtype)
+        return _dense_in(self.value, h, self.dtype).float()[..., 0]
 
 
 def gaussian_neglogp(mu: torch.Tensor, log_std: torch.Tensor,

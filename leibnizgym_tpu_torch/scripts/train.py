@@ -5,11 +5,16 @@
         args.num_envs=8 args.max_epochs=2
     python -m leibnizgym_tpu_torch.scripts.train args.play=True \\
         args.checkpoint=logs/<stamp>/nn/best
+    python -m leibnizgym_tpu_torch.scripts.train rlg.params.config.mixed_precision=True
+    python -m leibnizgym_tpu_torch.scripts.train rlg.params.config.nan_telemetry=True
 
 ``args.device`` is a torch device string; the default ``TPU`` means
-``cuda:0``, and asking for CUDA where there is none is an error. Not in the
-port yet (ROADMAP.md queue 1, item 14): ``args.multihost``,
-``args.wandb_log`` and the viewer (``args.headless=False``).
+``cuda:0``, and asking for CUDA where there is none is an error. Every
+agent setting of the reference is honoured, bfloat16 towers and
+``nan_telemetry`` included (``learning/ppo.py``); the TPU scheduling knobs
+are read and ignored. Not in the port yet (ROADMAP.md queue 1, item 14):
+``args.multihost``, ``args.wandb_log`` and the viewer
+(``args.headless=False``).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Recursive dict merge and the device rule of the port's entry points.
+"""Recursive dict merge, the device rule of the port's entry points and the
+card's name beside measurements.
 
 ``update_dict`` and ``merged_dict`` are the port's own copies of the JAX
 package's ``leibnizgym_tpu/utils/helpers.py`` (``tests/test_torch_copies.py``
@@ -9,6 +10,7 @@ from __future__ import annotations
 
 import collections.abc
 import copy
+import subprocess
 
 import torch
 
@@ -39,3 +41,15 @@ def resolve_device(name="cuda:0", cpu_hint: str = 'device="cpu"') -> torch.devic
             f"pass {cpu_hint} to run on the CPU"
         )
     return device
+
+
+def smi() -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (first card), to print beside a time."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip()
+    except OSError:
+        out = ""
+    return out.splitlines()[0] if out else "nvidia-smi: n/a"

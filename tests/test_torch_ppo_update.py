@@ -71,18 +71,24 @@ def test_gaussian_kl_and_entropy_match_reference():
                                np.asarray(ref_ent), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("setting, item", [
-    ({"mixed_precision": True}, "item 15"),
-    ({"network_dtype": "bfloat16"}, "item 15"),
-    ({"nan_telemetry": True}, "item 16"),
+@pytest.mark.parametrize("setting, field, value", [
+    ({"mixed_precision": True}, "network_dtype", "bfloat16"),
+    ({"network_dtype": "bfloat16"}, "network_dtype", "bfloat16"),
+    ({"nan_telemetry": True}, "nan_telemetry", True),
 ])
-def test_from_rlg_params_refuses_unported_settings(setting, item):
-    """A setting the port does not honour raises, naming its ROADMAP item,
-    instead of running something other than what the config asked for."""
+def test_from_rlg_params_honours_settings(setting, field, value):
+    """bfloat16 networks and nan_telemetry are read as the reference reads
+    them (ppo.py:165-174), and the networks take the dtype."""
     params = rlg_asymm_config()["params"]
     params["config"].update(setting)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
-        tppo.PPOConfig.from_rlg_params(params, 64)
+    cfg = tppo.PPOConfig.from_rlg_params(params, 64)
+    assert getattr(cfg, field) == value == getattr(jppo.PPOConfig.from_rlg_params(params, 64),
+                                                   field)
+    static = Static(64, OBS, STATES, ACT, True)
+    ac, cv = tppo.make_networks(cfg, static)
+    dtype = torch.bfloat16 if cfg.network_dtype == "bfloat16" else torch.float32
+    assert ac.dtype == cv.dtype == dtype
+    assert all(p.dtype == torch.float32 for p in list(ac.parameters()) + list(cv.parameters()))
 
 
 def test_from_rlg_params_ignores_tpu_scheduling_knobs():
