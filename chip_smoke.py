@@ -62,16 +62,34 @@ Phases (each prints its own lines; any failure exits non-zero):
     ``Runner._train_iter``. Checks: the halt at epoch 3, ``nan_prev_ts.pt``
     holding epoch 2's state, ``nan_replay`` naming step 0 and that env,
     ``nan_microscope`` reproducing the blow-up on the card, and the kernel
-    and the plain version going non-finite at the same substep of its walk.
+    and the plain version going non-finite at the same substep of its walk,
+    in the same fields;
+10. the tools path, at the reference scripts' defaults: ``trajectory_parity``
+    dumps 64 envs x 100 steps (D1, torque, 2 substeps, 4 TGS iterations) on
+    the card (1 + 100 launches) and, from the same draws and actions, on the
+    CPU through the plain version; each recorded card state, stepped once by
+    the plain version, must land on the next within KERNEL_TOL and its
+    referees; the free run's ``compare`` verdict prints ungated (contacts
+    make it chaotic). ``benchmark.py``'s sweep over 1024 / 4096 / 8192 /
+    16384 envs (100 steps, 2 substeps, random actions; 1 + 2 x 100 launches
+    each, the reference script's YAML keys); one 50-step chunk of
+    ``trifinger_random_action`` at 8192 envs (1 + 50 launches); the 10 robot
+    URDFs parsed by the port's parser built here, and ``chain_physics_step``
+    at 8192 envs in float32 on the card against float64 on the CPU for the
+    first 64 envs (``CHAIN_TOL``), with ms per step.
 The last two lines are the kernels' JSON record (times, flops, bytes and
-bound from phase 6; launches from phase 8) and the device JSON line.
+bound from phase 6; launches summed over the counted paths of phases 4-6
+and 8-10) and the device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -82,6 +100,7 @@ import time
 try:
     import numpy as np
     import torch
+    import yaml
 
     from leibnizgym_tpu_torch.config.presets import default_config, parse_cli, update_cfg
     from leibnizgym_tpu_torch.models import trifinger as tf_model
@@ -92,7 +111,15 @@ try:
     from leibnizgym_tpu_torch.ops import cuda_engine
     from leibnizgym_tpu_torch.ops.engine_v2 import pack_params, pack_state, step_packed
     from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
-    from leibnizgym_tpu_torch.scripts import nan_microscope, nan_replay
+    from leibnizgym_tpu_torch.models.chain import chain_from_urdf
+    from leibnizgym_tpu_torch.ops import generic_chain
+    from leibnizgym_tpu_torch.scripts import (
+        benchmark,
+        nan_microscope,
+        nan_replay,
+        trajectory_parity,
+        trifinger_random_action,
+    )
     from leibnizgym_tpu_torch.utils.helpers import smi
     from leibnizgym_tpu_torch.scripts.eval_policy import (
         goal_solve_stats,
@@ -202,14 +229,18 @@ def on_joint_limit_split(e, out, wrench, packed, cfg, dt) -> bool:
     return on_limit and spread and bool(ours.any())
 
 
-def kernel_vs_plain(tag: str, packed, cfg, dt, referee: bool = False):
+def kernel_vs_plain(tag: str, packed, cfg, dt, referee: bool = False, result=None):
     """The kernel against its plain version on packed inputs, with the two
     referees of KERNEL_TOL's note when ``referee``; prints one line and
-    checks. Returns the per-field max abs diffs to the float32 plain version
-    over the envs that no joint-limit referee took."""
+    checks. ``result`` = (state (31, N), impulses (18, N) or None) held to
+    the plain version in place of a launch (a recorded kernel output; None
+    impulses are not compared). Returns the per-field max abs diffs to the
+    float32 plain version over the envs that no joint-limit referee took."""
     s31, p40, t9 = packed
-    out, wrench = cuda_engine.step_packed_cuda(s31, p40, t9, cfg, dt)
+    out, wrench = result or cuda_engine.step_packed_cuda(s31, p40, t9, cfg, dt)
     ref, ref_w = step_packed(s31, p40, t9, cfg, dt)
+    if wrench is None:
+        wrench = ref_w
     torch.cuda.synchronize()
     bad = ~env_within(out, wrench, ref, ref_w)
     keep = torch.ones_like(bad)
@@ -985,16 +1016,179 @@ def phase_nan(dev, num_envs: int = 8192):
               f"nan_replay found {found}, not step 0 env {NAN_ENV}")
         seen = nan_microscope.microscope(npz, runner.logdir, device=dev) if found else None
         first = (seen or {}).get("first_bad_substep", {})
+        fields = (seen or {}).get("nonfinite_at_first_bad", {})
         tools_launches = cuda_engine.launch_count
-        ok = (seen is not None and first.get("kernel") is not None
-              and first.get("kernel") == first.get("plain"))
+        same_substep = (seen is not None and first.get("kernel") is not None
+                        and first.get("kernel") == first.get("plain"))
+        same_fields = same_substep and fields.get("kernel") == fields.get("plain")
         print(f"nan halt_epoch={halt['epoch']} dump_epoch={dump['epoch']} replay={found} "
-              f"microscope_first_bad_substep={first} tools_launches={tools_launches} "
-              f"same_substep={ok}", flush=True)
-        check(ok, "nan microscope: the kernel and the plain version differ on the blow-up")
+              f"microscope_first_bad_substep={first} nonfinite_fields={fields} "
+              f"tools_launches={tools_launches} same_substep={same_substep} "
+              f"same_fields={same_fields}", flush=True)
+        check(same_fields, "nan microscope: the kernel and the plain version differ on the "
+              "blow-up (substep or fields)")
         if runner.writer is not None:
             runner.writer.close()
     return {"launches": train_launches + tools_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+BENCH_COUNTS = (1024, 4096, 8192, 16384)
+BENCH_LEN = 100
+# the keys of the YAML of the repo's scripts/benchmark.py (its payload)
+BENCH_KEYS = ["bench_len", "device", "env_steps_per_sec", "substeps"]
+CHAIN_ENVS, CHAIN_CHECK, CHAIN_STEPS = 8192, 64, 5
+ROBOTS = os.path.join(ROOT, "resources", "assets", "robots")
+# Chain variants, float32 on the card against float64 on the CPU, max abs
+# after CHAIN_STEPS steps: KERNEL_TOL's joint bounds. Float32 against
+# float64 on the CPU measured ~1e-6 in both over 5 steps at the robots'
+# torque range (0.4 N m), so the bound leaves ~100x for the card's own
+# rounding (cuBLAS 3x3 products, another summation order).
+CHAIN_TOL = {"q": 1e-4, "qd": 1e-3}
+
+
+def phase_tools(dev):
+    """The tools path; returns the kernel launches of its counted runs."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = tools_trajectory_parity(dev, tmp) + tools_benchmark(dev, tmp)
+    launches += tools_random_action(dev)
+    tools_chain_variants(dev)
+    return {"launches": launches}
+
+
+def tools_trajectory_parity(dev, tmp):
+    ap = trajectory_parity.parser()
+    card_args = ap.parse_args(["dump", "--out", os.path.join(tmp, "card.npz")])
+    cpu_args = ap.parse_args(["dump", "--device", "cpu", "--out", os.path.join(tmp, "cpu.npz")])
+    n, steps = card_args.num_envs, card_args.steps
+    static = trajectory_parity.make_env(cpu_args).static
+    gen = torch.Generator().manual_seed(SEED)
+    draws = (tenv.draw_init_randoms(static, gen, n, "cpu"),
+             [tenv.draw_step_randoms(static, gen, n, "cpu") for _ in range(steps)])
+    actions = [torch.rand((n, static.action_dim), generator=gen) * 2.0 - 1.0
+               for _ in range(steps)]
+    cuda_engine.launch_count = 0
+    t = time.perf_counter()
+    meta = trajectory_parity.dump(card_args, actions, draws)
+    torch.cuda.synchronize()
+    card_s, launches = time.perf_counter() - t, cuda_engine.launch_count
+    check(launches == 1 + steps, f"trajectory dump launch_count {launches} != {1 + steps}")
+    check(meta["device"] == torch.cuda.get_device_name(0), f"dump meta device {meta}")
+    t = time.perf_counter()
+    trajectory_parity.dump(cpu_args, actions, draws)
+    cpu_s = time.perf_counter() - t
+
+    # gate: each recorded card state stepped once by the plain version lands
+    # on the next recorded one (the action of the next step, as phase 3)
+    d = np.load(card_args.out, allow_pickle=True)
+    env = trajectory_parity.make_env(card_args)
+    st, prm = env.static, env.params
+    t_ = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    fields = ("q", "qd", "cube_pos", "cube_quat", "cube_linvel", "cube_angvel")
+    flat = lambda k, a, b: t_(d[k][a:b].reshape((b - a) * n, -1))  # noqa: E731
+    prev = PhysicsState(*(flat(k, 0, steps - 1) for k in fields))
+    nxt = PhysicsState(*(flat(k, 1, steps) for k in fields))
+    m = prev.q.shape[0]
+    tau = tenv.compute_torque(st, prm, flat("action", 1, steps), prev.q, prev.qd)
+    packed = (pack_state(prev), pack_params(prm.scene_base.broadcast(m), m),
+              tau.T.contiguous())
+    kernel_vs_plain(f"trajectory_parity recorded_steps={steps - 1} envs={n}", packed,
+                    st.solver, st.dt, referee=True, result=(pack_state(nxt), None))
+
+    # the free run against the CPU's, ungated
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trajectory_parity.compare(argparse.Namespace(
+            file_a=card_args.out, file_b=cpu_args.out, tol=2e-4))
+    verdict = [line for line in buf.getvalue().splitlines() if line.startswith("verdict")]
+    worst = {line.split(":")[0]: line.split()[2] for line in buf.getvalue().splitlines()
+             if line.split(":")[0] in ("q", "cube_pos", "cube_quat", "cube_angvel")}
+    print(f"{smi()} trajectory_parity envs={n} steps={steps} launches={launches} "
+          f"card_dump_s={card_s:.2f} cpu_plain_dump_s={cpu_s:.2f} compare_rc={rc} "
+          f"{verdict[0] if verdict else 'verdict: none'} worst_by_field={worst}", flush=True)
+    return launches
+
+
+def tools_benchmark(dev, tmp):
+    counts = {}
+    run = benchmark.bench_one
+
+    def counted(n, *args, **kw):  # launches of each env count of the sweep
+        before = cuda_engine.launch_count
+        sps = run(n, *args, **kw)
+        counts[n] = cuda_engine.launch_count - before
+        return sps
+
+    path = os.path.join(tmp, "bench.yaml")
+    cuda_engine.launch_count = 0
+    benchmark.bench_one = counted
+    try:
+        payload = benchmark.main(["--num_envs_sweep", *map(str, BENCH_COUNTS), "--bench_len",
+                                  str(BENCH_LEN), "--substeps", "2", "--bench_file", path])
+    finally:
+        benchmark.bench_one = run
+    torch.cuda.synchronize()
+    launches = cuda_engine.launch_count
+    with open(path) as f:
+        written = yaml.safe_load(f)
+    check(sorted(written) == BENCH_KEYS and written == payload,
+          f"benchmark YAML keys {sorted(written)} != {BENCH_KEYS}")
+    check(written["device"] == torch.cuda.get_device_name(0), f"benchmark device {written}")
+    check(all(counts.get(n) == 1 + 2 * BENCH_LEN for n in BENCH_COUNTS),
+          f"benchmark launches per count {counts} != {1 + 2 * BENCH_LEN}")
+    print(f"{smi()} benchmark substeps=2 bench_len={BENCH_LEN} launches_per_count={counts} "
+          + " ".join(f"env_steps_per_s_{n}={v}" for n, v in
+                     written["env_steps_per_sec"].items()), flush=True)
+    return launches
+
+
+def tools_random_action(dev, num_envs: int = 8192):
+    cuda_engine.launch_count = 0
+    env = trifinger_random_action.make_env(num_envs, device=dev, verbose=False)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sps = trifinger_random_action.chunk(env, gen)
+    launches = cuda_engine.launch_count
+    chunk = trifinger_random_action.CHUNK
+    check(launches == 1 + chunk, f"random action launch_count {launches} != {1 + chunk}")
+    check(bool(torch.isfinite(env.state.physics.q).all()), "random action state not finite")
+    print(f"{smi()} random_action envs={num_envs} chunk={chunk} launches={launches} "
+          f"env_steps_per_s={sps:.1f}", flush=True)
+    return launches
+
+
+def tools_chain_variants(dev):
+    for rel in sorted(os.listdir(ROBOTS)):
+        chain = chain_from_urdf(os.path.join(ROBOTS, rel))
+        f = chain.num_fingers
+        rng = np.random.default_rng(SEED)
+        lo, hi = np.tile(chain.joint_lower, f), np.tile(chain.joint_upper, f)
+        q0 = rng.uniform(lo, hi, (CHAIN_ENVS, 3 * f))
+        qd0 = rng.uniform(-3.0, 3.0, (CHAIN_ENVS, 3 * f))
+        tau = rng.uniform(-0.4, 0.4, (CHAIN_STEPS, CHAIN_ENVS, 3 * f))
+        kw = dict(joint_damping=0.05, armature=0.003)
+        out = {}
+        for who, device, dtype, envs in (("card", dev, torch.float32, CHAIN_ENVS),
+                                         ("cpu", "cpu", torch.float64, CHAIN_CHECK)):
+            t = lambda x: torch.as_tensor(x[..., :envs, :], device=device, dtype=dtype)  # noqa: E731,B023
+            state = generic_chain.ChainState(t(q0), t(qd0))
+            for k in range(CHAIN_STEPS):
+                state = generic_chain.chain_physics_step(state, t(tau[k]), chain, **kw)
+            out[who] = state
+        step = lambda: generic_chain.chain_physics_step(  # noqa: E731
+            out["card"], torch.as_tensor(tau[0], device=dev, dtype=torch.float32), chain, **kw)
+        ms = cuda_ms(step, 5)
+        err = {k: float((getattr(out["card"], k)[:CHAIN_CHECK].double().cpu()
+                         - getattr(out["cpu"], k)).abs().max()) for k in CHAIN_TOL}
+        ok = all(err[k] <= CHAIN_TOL[k] for k in err)
+        ok &= all(bool(torch.isfinite(x).all()) for x in out["card"])
+        print(f"{smi()} chain {rel} fingers={f} envs={CHAIN_ENVS} steps={CHAIN_STEPS} "
+              f"ms_per_step={ms:.3f} card_f32_vs_cpu_f64_first_{CHAIN_CHECK} "
+              + " ".join(f"{k}={v:.3e}" for k, v in err.items()) + f" within_tol={ok}",
+              flush=True)
+        check(ok, f"chain variant {rel}: card float32 vs CPU float64")
 
 
 def main() -> int:
@@ -1038,15 +1232,21 @@ def main() -> int:
                "d4": timed("phase 6", phase_d4, dev)}
     timed("phase 7", phase_replay, dev)
     bf16 = timed("phase 8", phase_bf16, dev, records["train"].pop("split"))
-    timed("phase 9", phase_nan, dev)
+    nan = timed("phase 9", phase_nan, dev)
+    tools = timed("phase 10", phase_tools, dev)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
     print(smi(), flush=True)
-    # phase 6 gives the times and the bound, this slice's path (phase 8) the
-    # launches; the error is the worst of phases 4-6
-    record = dict(records["d4"], launches=bf16["launches"],
+    # phase 6 gives the times and the bound; the launches are every counted
+    # path's (phases 4-6 and 8-10); the error is the worst of phases 4-6
+    paths = {"phase 4": records["slice"]["launches"], "phase 5": records["train"]["launches"],
+             "phase 6": records["d4"]["launches"], "phase 8": bf16["launches"],
+             "phase 9": nan["launches"], "phase 10": tools["launches"]}
+    print("launches " + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in paths.items()),
+          flush=True)
+    record = dict(records["d4"], launches=sum(paths.values()),
                   max_abs_err=max(r["max_abs_err"] for r in records.values()))
     print(json.dumps({"kernels": [{
         "name": "physics_step", "route": "cuda",

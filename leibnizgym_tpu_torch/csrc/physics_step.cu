@@ -106,10 +106,31 @@ typedef LG_REAL real;
 
 LG_HD float lg_sqrt(float x) { return sqrtf(x); }
 LG_HD double lg_sqrt(double x) { return sqrt(x); }
-LG_HD float lg_fmax(float a, float b) { return fmaxf(a, b); }
-LG_HD double lg_fmax(double a, double b) { return fmax(a, b); }
-LG_HD float lg_fmin(float a, float b) { return fminf(a, b); }
-LG_HD double lg_fmin(double a, double b) { return fmin(a, b); }
+// max / min as jnp.maximum / torch.maximum compute them: NaN in either operand
+// gives NaN (fmaxf / fminf follow IEEE maxNum and return the operand that is
+// not NaN, so a clamp would turn a NaN velocity into its bound). On the card
+// float uses the one-instruction max.NaN / min.NaN of sm_80+ (the select
+// below made the kernel ~11% slower on the H100; PERF.md); elsewhere a select.
+LG_HD float lg_fmax(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || a > b) ? a : b;
+#endif
+}
+LG_HD double lg_fmax(double a, double b) { return (a != a || a > b) ? a : b; }
+LG_HD float lg_fmin(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return (a != a || a < b) ? a : b;
+#endif
+}
+LG_HD double lg_fmin(double a, double b) { return (a != a || a < b) ? a : b; }
 LG_HD float lg_fabs(float x) { return fabsf(x); }
 LG_HD double lg_fabs(double x) { return fabs(x); }
 LG_HD float lg_sin(float x) { return sinf(x); }

@@ -1066,9 +1066,13 @@ class TrifingerEnv(EnvBase):
                 f"actions={self.static.action_dim}"
             )
 
-    def reset(self):
-        self._state, obs = env_reset(self.static, self.params, *draw_init_randoms(
-            self.static, self.generator, self.static.num_envs, self.device, self.dtype))
+    def reset(self, draws=None):
+        """Full reset; ``draws`` (``draw_init_randoms``' layout) are drawn from
+        the env's generator unless given."""
+        if draws is None:
+            draws = draw_init_randoms(self.static, self.generator, self.static.num_envs,
+                                      self.device, self.dtype)
+        self._state, obs = env_reset(self.static, self.params, *draws)
         self._last = (obs, None, None, None, {})
         return obs
 

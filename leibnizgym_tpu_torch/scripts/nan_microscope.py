@@ -17,7 +17,8 @@ finiteness of ``q``, ``qd``, ``cube_pos``, ``cube_quat``, ``cube_linvel`` and
 ``cube_angvel`` after each, and the values before and after the first bad
 substep. On a CUDA device the kernel (``cuda_engine.step_packed_cuda``, one
 env, one substep per launch) walks beside it and its flags print next to
-the plain version's, so a blow-up of the kernel alone shows as such.
+the plain version's, so a blow-up of the kernel alone, or one in other
+fields, shows as such.
 """
 
 from __future__ import annotations
@@ -73,16 +74,18 @@ def _fmt(flags: dict) -> str:
 
 
 def walk_substeps(physics, scene, torque, cfg, h: float, count: int,
-                  kernel: bool) -> dict:
+                  kernel: bool) -> tuple:
     """``count`` substeps of the plain engine (and of the kernel when
     ``kernel``), one per call; returns the first non-finite substep of each
-    (None where none)."""
+    (None where none) and the fields non-finite there (each a dict keyed
+    ``plain`` / ``kernel``)."""
     one = dataclasses.replace(cfg, substeps=1)
     p40, t9 = pack_params(scene, 1), torque.T.contiguous()
     state = {"plain": pack_state(physics)}
     if kernel:
         state["kernel"] = state["plain"].clone()
     first = dict.fromkeys(state)
+    fields = dict.fromkeys(state)
     for i in range(count):
         line, went_bad = [], []
         for who in [w for w in state if first[w] is None]:
@@ -94,6 +97,7 @@ def walk_substeps(physics, scene, torque, cfg, h: float, count: int,
             line.append((f"{who} " if kernel else "") + _fmt(flags))
             if not all(flags.values()):
                 first[who] = i
+                fields[who] = [f for f, ok in flags.items() if not ok]
                 went_bad.append((who, state[who], new))
             state[who] = new
         print(f"substep {i}: " + "  |  ".join(line), flush=True)
@@ -104,13 +108,14 @@ def walk_substeps(physics, scene, torque, cfg, h: float, count: int,
                 print(f"  {who} post {f} = {post[a:b, 0].cpu().numpy()}")
         if all(v is not None for v in first.values()):
             break
-    return first
+    return first, fields
 
 
 def microscope(dump: str, logdir: str, device="cuda:0") -> Optional[dict]:
     """Rerun the dumped step and walk its substeps; returns {"nonfinite":
-    fields, "first_bad_substep": {"plain": i, "kernel": i}} when the step
-    reproduces the blow-up, else None."""
+    fields, "first_bad_substep": {"plain": i, "kernel": i},
+    "nonfinite_at_first_bad": {"plain": [field, ...], "kernel": [...]}}
+    when the step reproduces the blow-up, else None."""
     device = resolve_device(device, cpu_hint="--device cpu")
     d = np.load(dump)
     with open(os.path.join(logdir, "env_config.yaml")) as f:
@@ -139,12 +144,13 @@ def microscope(dump: str, logdir: str, device="cuda:0") -> Optional[dict]:
                                       norm_reset, dr_blocks)
     torque = new_state.applied_torque  # post-PD
     print(f"applied torque: {torque[0].cpu().numpy()}", flush=True)
-    first = walk_substeps(entered.physics, entered.scene, torque, cfg,
-                          static.dt / cfg.substeps, cfg.substeps * static.control_decimation,
-                          kernel=device.type == "cuda")
+    first, fields = walk_substeps(entered.physics, entered.scene, torque, cfg,
+                                  static.dt / cfg.substeps,
+                                  cfg.substeps * static.control_decimation,
+                                  kernel=device.type == "cuda")
     print("first non-finite substep: " + "  ".join(f"{k}={v}" for k, v in first.items()),
           flush=True)
-    return {"nonfinite": bad, "first_bad_substep": first}
+    return {"nonfinite": bad, "first_bad_substep": first, "nonfinite_at_first_bad": fields}
 
 
 def main(argv=None) -> int:

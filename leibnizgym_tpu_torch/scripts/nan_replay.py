@@ -172,13 +172,20 @@ def replay(logdir: str, steps: int = 64, out: str = "nan_microscope.npz",
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[0],
+        epilog="A dump replays only on the kind of device that wrote it: the dumped "
+               "generator state is that device's (a CUDA generator's state cannot seed "
+               "a CPU one), so a dump written on the card replays on a card, and one "
+               "written on the CPU with --device cpu.")
     ap.add_argument("logdir")
     ap.add_argument("--steps", type=int, default=64,
                     help="max rollout steps to replay (an epoch is 32; more catches "
                          "a NaN that needs the next epoch)")
     ap.add_argument("--out", default="nan_microscope.npz")
-    ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--device", default="cuda:0",
+                    help="cuda:0 (default) or cpu; must be the kind of device that "
+                         "wrote the dump")
     args = ap.parse_args(argv)
     found = replay(args.logdir, args.steps, args.out, args.device)
     return 0 if found is not None else 1

@@ -12,13 +12,15 @@
 ``cuda:0``, and asking for CUDA where there is none is an error. Every
 agent setting of the reference is honoured, bfloat16 towers and
 ``nan_telemetry`` included (``learning/ppo.py``); the TPU scheduling knobs
-are read and ignored. Not in the port yet (ROADMAP.md queue 1, item 14):
-``args.multihost``, ``args.wandb_log`` and the viewer
-(``args.headless=False``).
+are read and ignored. ``args.wandb_log=True`` logs to wandb as the
+reference does, and trains without it, with a note, where wandb is not
+installed. Not in the port yet (ROADMAP.md queue 1, item 14):
+``args.multihost`` and the viewer (``args.headless=False``).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 from leibnizgym_tpu_torch.utils.message import print_dict, print_info
@@ -29,10 +31,22 @@ from leibnizgym_tpu_torch.learning.train import run_training
 def main(argv):
     cfg = update_cfg(parse_cli(argv))
     args = cfg["args"]
-    for key in ("multihost", "wandb_log"):
-        if args.get(key):
-            raise NotImplementedError(
-                f"args.{key} is not in the PyTorch port yet (ROADMAP.md queue 1, item 14)")
+    if args.get("multihost"):
+        raise NotImplementedError(
+            "args.multihost is not in the PyTorch port yet (ROADMAP.md queue 1, item 14)")
+    if args["wandb_log"]:
+        try:
+            import wandb
+
+            wandb.init(
+                project=args["wandb_project_name"],
+                config=cfg,
+                sync_tensorboard=True,
+                id=os.environ.get("SLURM_JOB_ID"),
+                resume="allow",
+            )
+        except ImportError:
+            print_info("wandb not installed; continuing without it")
     if args["verbose"]:
         print_info("Full configuration:")
         print_dict(cfg)

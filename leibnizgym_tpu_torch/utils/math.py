@@ -1,5 +1,5 @@
-"""Normalization transforms and quaternion algebra on tensors (counterpart
-of ``leibnizgym_tpu/utils/math.py``). Quaternions are (x, y, z, w), real part
+"""Normalization transforms, quaternion algebra and the 3x3 helpers of the
+robot dynamics on tensors (counterpart of ``leibnizgym_tpu/utils/math.py``). Quaternions are (x, y, z, w), real part
 last; every function broadcasts over leading batch dims."""
 
 from __future__ import annotations
@@ -73,3 +73,42 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     norm = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return q / torch.clamp_min(norm, eps)
+
+
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Skew-symmetric cross-product matrix of (..., 3) -> (..., 3, 3)."""
+    zeros = torch.zeros_like(v[..., 0])
+    return torch.stack(
+        [
+            torch.stack([zeros, -v[..., 2], v[..., 1]], dim=-1),
+            torch.stack([v[..., 2], zeros, -v[..., 0]], dim=-1),
+            torch.stack([-v[..., 1], v[..., 0], zeros], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def solve_pd_3x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve ``a @ x = b`` for symmetric positive-definite 3x3 ``a`` by a
+    closed-form Cholesky factor, batched over leading dims."""
+    a00 = a[..., 0, 0]
+    a10 = a[..., 1, 0]
+    a11 = a[..., 1, 1]
+    a20 = a[..., 2, 0]
+    a21 = a[..., 2, 1]
+    a22 = a[..., 2, 2]
+    l00 = torch.sqrt(torch.clamp_min(a00, 1e-12))
+    l10 = a10 / l00
+    l20 = a20 / l00
+    l11 = torch.sqrt(torch.clamp_min(a11 - l10 * l10, 1e-12))
+    l21 = (a21 - l20 * l10) / l11
+    l22 = torch.sqrt(torch.clamp_min(a22 - l20 * l20 - l21 * l21, 1e-12))
+    # forward substitution L y = b
+    y0 = b[..., 0] / l00
+    y1 = (b[..., 1] - l10 * y0) / l11
+    y2 = (b[..., 2] - l20 * y0 - l21 * y1) / l22
+    # back substitution L^T x = y
+    x2 = y2 / l22
+    x1 = (y1 - l21 * x2) / l11
+    x0 = (y0 - l10 * x1 - l20 * x2) / l00
+    return torch.stack([x0, x1, x2], dim=-1)

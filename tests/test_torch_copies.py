@@ -2,22 +2,31 @@
 
 The port imports nothing of the JAX package (``test_torch_imports.py``). It
 keeps its own copies of the robot tables (``models/trifinger.py``), the
-presets (``config/presets.py``) and the dict helpers (``utils/helpers.py``);
+presets (``config/presets.py``), the dict, resource and seeding helpers
+(``utils/helpers.py``), the task-name error (``utils/errors.py``, the same
+code under its own docstring) and the URDF parser's C++ source (``csrc/urdf_parser.cpp``, of
+``native/urdf_parser.cpp``) with its ctypes records (``models/urdf.py``);
 these tests hold each copy to its source, so the two cannot drift. The
 logging helpers (``utils/message.py``) print the same lines.
 """
 
+import ast
 import copy
+import ctypes
+import os
+import random
 
 import numpy as np
 import pytest
 
 from leibnizgym_tpu.config import presets as jax_presets
 from leibnizgym_tpu.models import trifinger as jax_tf
+from leibnizgym_tpu.models import urdf as jax_urdf
 from leibnizgym_tpu.utils import helpers as jax_helpers
 from leibnizgym_tpu.utils import message as jax_message
 from leibnizgym_tpu_torch.config import presets as port_presets
 from leibnizgym_tpu_torch.models import trifinger as port_tf
+from leibnizgym_tpu_torch.models import urdf as port_urdf
 from leibnizgym_tpu_torch.utils import helpers as port_helpers
 from leibnizgym_tpu_torch.utils import message as port_message
 
@@ -94,3 +103,61 @@ def test_message_helpers_print_the_same(capsys):
     for name in ("print_info", "print_debug", "print_notify", "print_warn", "print_error"):
         getattr(port_message, name)("hello")
         assert "hello" in capsys.readouterr().out
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_urdf_parser_source_is_byte_equal():
+    with open(os.path.join(ROOT, "leibnizgym_tpu_torch/csrc/urdf_parser.cpp"), "rb") as a, \
+            open(os.path.join(ROOT, "native/urdf_parser.cpp"), "rb") as b:
+        assert a.read() == b.read()
+
+
+def _code(path):
+    """The module's code without its docstring."""
+    with open(os.path.join(ROOT, path)) as f:
+        body = ast.parse(f.read()).body
+    return [ast.dump(node) for node in body[1:]]
+
+
+def test_errors_module_is_the_same_code():
+    assert _code("leibnizgym_tpu_torch/utils/errors.py") == \
+        _code("leibnizgym_tpu/utils/errors.py")
+
+
+def test_urdf_records_match_the_parser_bindings():
+    def kind(t):
+        inner = getattr(t, "_type_", t)  # a code ("d"), or an element / pointee class
+        return inner if isinstance(inner, str) else inner.__name__
+
+    def layout(cls):
+        return ctypes.sizeof(cls), [(f, getattr(cls, f).offset, getattr(cls, f).size, kind(t))
+                                    for f, t in cls._fields_]
+
+    for name in ("_UrdfLink", "_UrdfJoint", "_UrdfModel"):
+        assert layout(getattr(port_urdf, name)) == layout(getattr(jax_urdf, name)), name
+    assert port_urdf._JOINT_TYPES == jax_urdf._JOINT_TYPES
+
+
+def test_resource_and_seed_helpers_behave_the_same():
+    assert port_helpers.get_resources_dir() == jax_helpers.get_resources_dir()
+    saved = np.get_printoptions()
+    try:
+        port_helpers.set_np_formatting()
+        ours = np.get_printoptions()
+        np.set_printoptions(**saved)
+        jax_helpers.set_np_formatting()
+        assert ours == np.get_printoptions() and ours["linewidth"] == 4000
+    finally:
+        np.set_printoptions(**saved)
+    state = random.getstate(), np.random.get_state()
+    try:
+        gen = port_helpers.set_seed(11)
+        ours = random.random(), np.random.rand()
+        key = jax_helpers.set_seed(11)
+        assert ours == (random.random(), np.random.rand())
+        assert gen.initial_seed() == 11 and int(np.asarray(key)[-1]) == 11
+    finally:
+        random.setstate(state[0])
+        np.random.set_state(state[1])

@@ -14,6 +14,9 @@ imports JAX, so on such a machine run it without the conftest:
 - each launch adds one to ``launch_count``, and a CUDA tensor never reaches
   the plain version;
 - the wrapper refuses a wrong dtype, shape, layout or device;
+- a state whose solve overflows (one env's cube at 1e30 m/s) goes
+  non-finite in the same rows and envs of the kernel's output and impulses
+  as of the plain version's (the kernel's max / min propagate NaN);
 - one learner step (actor-critic and central value) on the card against the
   same step on the CPU, as chip_smoke.py phase 5 holds it.
 """
@@ -93,6 +96,22 @@ def test_kernel_matches_plain_at_ragged_n(dev, n):
     nothing."""
     _check_against_plain(dev, SolverConfig(solver_type=1, substeps=4, solver_iterations=8),
                          n, seed=n)
+
+
+@pytest.mark.parametrize("solver_type", [0, 1])
+def test_kernel_propagates_nan_as_plain_on_card(dev, solver_type):
+    n, bad_env = 64, 5
+    cfg = SolverConfig(solver_type=solver_type, substeps=4, solver_iterations=8)
+    state, tau, scene = _inputs(dev, 3, n)
+    state.cube_linvel[bad_env] = 1e30
+    s31, p40, t9 = engine_v2.pack_state(state), engine_v2.pack_params(scene, n), tau.T.contiguous()
+    out, imp = cuda_engine.step_packed_cuda(s31, p40, t9, cfg, 0.02)
+    ref, ref_imp = engine_v2.step_packed(s31, p40, t9, cfg, 0.02)
+    torch.cuda.synchronize()
+    bad = ~torch.isfinite(ref)
+    assert bool(bad[:, bad_env].all()) and int(bad.any(0).sum()) == 1
+    assert torch.equal(~torch.isfinite(out), bad)
+    assert torch.equal(~torch.isfinite(imp), ~torch.isfinite(ref_imp))
 
 
 def test_every_env_resident_at_once(dev):

@@ -7,10 +7,12 @@ needs from the JAX package (held to it by ``test_torch_copies.py``), so the
 JAX package ``leibnizgym_tpu`` itself is blocked too, by its exact top-level
 name. A subprocess blocks ``jax``, ``flax``, ``optax``, ``orbax`` and
 ``leibnizgym_tpu`` with a ``sys.meta_path`` finder, imports every
-module of the port (the learner, runner, training entry and CLI among
-them) and ``chip_smoke.py``, steps a 2-env ``TrifingerEnv`` on D1 and on
-the D4 + DR preset, reads a shipped ``.npz`` policy and trains a 2-env
-``Runner`` for one epoch.
+module of the port (the learner, runner, training entry and CLI, the
+robot-variant path and the tool scripts among them) and ``chip_smoke.py``,
+steps a 2-env ``TrifingerEnv`` on D1 and on the D4 + DR preset, reads a
+shipped ``.npz`` policy, runs the legacy CLI's config loading, a URDF
+robot's chain step, a benchmark point, the asset export and a trajectory
+dump, and trains a 2-env ``Runner`` for one epoch.
 """
 
 import os
@@ -61,8 +63,32 @@ assert obs.shape == (2, 41) and states.shape == (2, 113) and reward.shape == (2,
 assert bool(torch.isfinite(obs).all()) and bool(torch.isfinite(states).all())
 assert float(obs.abs().max()) <= 5.0 and float(states.abs().max()) <= 5.0
 for name in ("learning.ppo", "learning.runner", "learning.train", "scripts.train",
-             "wrappers.frame_stack", "convert", "dr", "scripts.eval_policy"):
+             "wrappers.frame_stack", "convert", "dr", "scripts.eval_policy",
+             "config.config_utils", "utils.errors", "utils.mdp", "models.urdf",
+             "models.chain", "ops.kinematics", "ops.dynamics", "ops.generic_chain",
+             "scripts.benchmark", "scripts.asset_tools", "scripts.export_assets",
+             "scripts.trifinger_random_action", "scripts.trajectory_parity"):
     assert "leibnizgym_tpu_torch." + name in names, name
+
+# the robot-variant path, the legacy CLI and the tools run without JAX
+import tempfile
+from leibnizgym_tpu_torch.config.config_utils import get_args, load_cfg, update_cfg_from_args
+from leibnizgym_tpu_torch.models.chain import chain_from_urdf
+from leibnizgym_tpu_torch.ops.generic_chain import chain_default_state, chain_physics_step
+from leibnizgym_tpu_torch.scripts import export_assets, trajectory_parity
+from leibnizgym_tpu_torch.scripts.benchmark import bench_one
+
+args = get_args(["--num_envs", "4"])
+cfg_env, cfg_train = update_cfg_from_args(*load_cfg(args.task, "asymm"), args)
+assert cfg_env["num_instances"] == 4
+chain = chain_from_urdf("resources/assets/robots/trifingeredu.urdf")
+cs = chain_physics_step(chain_default_state(chain, 2, device="cpu"), torch.zeros(2, 9), chain)
+assert bool(torch.isfinite(cs.q).all())
+assert bench_one(2, 1, 1, True, device="cpu") > 0
+with tempfile.TemporaryDirectory() as tmp:
+    assert export_assets.main(["--out", tmp]) == 0
+    assert trajectory_parity.main(["dump", "--device", "cpu", "--num-envs", "2", "--steps",
+                                   "1", "--out", tmp + "/t.npz"]) == 0
 
 # the D4 flagship preset (DR, keypoints, curriculum) steps, and a shipped
 # policy restores from its npz

@@ -15,6 +15,11 @@ on both arena profiles, an N that is not a multiple of the card's 32-env
 blocks); the card itself compares the float32 kernel with the plain version
 in chip_smoke.py.
 
+The kernel's NaN handling is held to the plain version's too: its max and
+min propagate NaN as torch.maximum / jnp.maximum do, so a state the solve
+blows up goes non-finite in the same fields in both, in float32 and float64,
+and the plain version's fields are held to the JAX reference's.
+
 The library is built once into build/leibnizgym_tpu_torch/host-<hash>/
 under a file lock, so parallel test workers share one build. It is a test
 tool: the port's CPU path never loads it.
@@ -26,6 +31,8 @@ import hashlib
 import os
 import subprocess
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,35 +41,41 @@ from leibnizgym_tpu_torch.models import trifinger as tf_model
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops.engine_v2 import pack_params, pack_state, step_packed
 from leibnizgym_tpu_torch.ops.types import SolverConfig
-from test_torch_common import random_physics, scene_arrays, torch_inputs
+from test_torch_common import (
+    STATE_FIELDS, jax_inputs, jax_physics_step, random_physics, scene_arrays, torch_inputs)
 
 torch.set_num_threads(1)
 
 N = 16
 TOL = 1e-11
-FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC", "-DLG_REAL=double")
+FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC")
 Consts64 = cuda_engine._consts_struct(ctypes.c_double)
+Consts32 = cuda_engine._consts_struct(ctypes.c_float)
+# the working type of a host build: its C name, ctypes struct of constants
+REALS = {torch.float64: ("double", Consts64), torch.float32: ("float", Consts32)}
 
 
-def _host_library() -> ctypes.CDLL:
+def _host_library(dtype=torch.float64) -> ctypes.CDLL:
+    real, consts = REALS[dtype]
+    flags = (*FLAGS, f"-DLG_REAL={real}")
     with open(cuda_engine.SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = os.path.join(cuda_engine.BUILD_ROOT, f"host-{digest}")
     os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, "libphysics_step_host64.so")
+    lib_path = os.path.join(out_dir, f"libphysics_step_host_{real}.so")
     with open(os.path.join(out_dir, "lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(lib_path):
             tmp = f"{lib_path}.tmp{os.getpid()}"
-            proc = subprocess.run(["g++", *FLAGS, "-o", tmp, cuda_engine.SOURCE],
+            proc = subprocess.run(["g++", *flags, "-o", tmp, cuda_engine.SOURCE],
                                   capture_output=True, text=True, timeout=300)
             assert proc.returncode == 0, proc.stderr[-4000:]
             os.replace(tmp, lib_path)
     lib = ctypes.CDLL(lib_path)
     ptr = ctypes.c_void_p
     lib.leibniz_physics_step_host.argtypes = [ptr] * 5 + [ctypes.c_int,
-                                                          ctypes.POINTER(Consts64)]
-    assert lib.leibniz_consts_size() == ctypes.sizeof(Consts64)
+                                                          ctypes.POINTER(consts)]
+    assert lib.leibniz_consts_size() == ctypes.sizeof(consts)
     return lib
 
 
@@ -162,3 +175,72 @@ def test_kernel_consts_follow_the_robot_tables():
     assert k.baum_over_h == cfg.baumgarte / (0.02 / 4)
     assert list(k.sample_frac) == [float(f) for f, _ in tf_model.LOWER_LINK_SAMPLES]
     assert (k.substeps, k.solver_iterations, k.solver_type, k.object_shape) == (4, 8, 1, 0)
+
+
+NAN_ENV = 3
+# a cube velocity whose square overflows the working type
+POISON = {torch.float32: 1e30, torch.float64: 1e200}
+
+
+def _poisoned(case, dtype, n=8):
+    """Seeded inputs (numpy, then torch) with env NAN_ENV's cube flung at a
+    velocity whose square overflows ``dtype``."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    phys = {k: v.astype(np_dtype) for k, v in random_physics(n, 21).items()}
+    phys["cube_linvel"][NAN_ENV] = POISON[dtype]
+    scene = scene_arrays(n, 22, per_env=True)
+    state, tau, params = torch_inputs(phys, scene, dtype)
+    packed = pack_state(state), pack_params(params, n), tau.T.contiguous()
+    return phys, scene, packed, step_packed(*packed, SolverConfig(**SOLVERS[case]), 0.02)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["pgs_s2_i4", "tgs_s4_i8"])
+def test_host_kernel_propagates_nan_as_plain(case, dtype):
+    """The solve of the poisoned env goes to inf and NaN. The kernel's output
+    and impulses go non-finite in exactly the rows and envs where the plain
+    version's do: a kernel whose max / min dropped NaN (fmaxf / fminf) kept
+    the finger rows 0-17 finite where the plain version's are NaN."""
+    n = 8
+    _, _, (s31, p40, t9), (ref, ref_imp) = _poisoned(case, dtype, n)
+    out = torch.empty_like(s31)
+    imp = torch.empty_like(ref_imp)
+    _host_library(dtype).leibniz_physics_step_host(
+        s31.data_ptr(), p40.data_ptr(), t9.data_ptr(), out.data_ptr(), imp.data_ptr(), n,
+        ctypes.byref(cuda_engine.kernel_consts(SolverConfig(**SOLVERS[case]), 0.02,
+                                               REALS[dtype][1])))
+    bad = ~torch.isfinite(ref)
+    ok = np.arange(n) != NAN_ENV
+    # the case bites: the poisoned env blows up in every state row, no other does
+    assert bad[:, NAN_ENV].all() and not bad[:, ok].any()
+    assert torch.equal(~torch.isfinite(out), bad)
+    assert torch.equal(~torch.isfinite(imp), ~torch.isfinite(ref_imp))
+    # the healthy envs still agree with the plain version (float32: the
+    # contact solve amplifies rounding, as chip_smoke.KERNEL_TOL allows)
+    tol = TOL if dtype == torch.float64 else 1e-3
+    assert float((out[:, ok] - ref[:, ok]).abs().max()) < tol
+    assert float((imp[:, ok] - ref_imp[:, ok]).abs().max()) < tol
+
+
+def test_plain_nan_fields_match_reference():
+    """The plain version's non-finite elements are the JAX reference's
+    (ops/engine_v2.py, vmapped physics_step_v2), field by field and env by
+    env, on the poisoned state at the training setting in float32, the
+    card's working type. (One JIT compile of the reference costs ~30 s, so
+    one setting; the float64 and PGS masks are tied to the plain version by
+    the test above.)"""
+    from leibnizgym_tpu.ops import types as jtypes
+    from leibnizgym_tpu_torch.ops.engine_v2 import unpack_state, wrench_from_impulses
+
+    case = "tgs_s4_i8"
+    phys, scene, _, (ref, ref_imp) = _poisoned(case, torch.float32)
+    jstate, jwrench = jax.device_get(jax_physics_step(jtypes.SolverConfig(**SOLVERS[case]))(
+        *jax_inputs(phys, scene, jnp.float32)))
+    plain = unpack_state(ref)
+    for name in STATE_FIELDS:
+        jbad = ~np.isfinite(np.asarray(getattr(jstate, name)))
+        assert jbad[NAN_ENV].all(), name
+        np.testing.assert_array_equal(jbad, ~torch.isfinite(getattr(plain, name)).numpy(),
+                                      err_msg=name)
+    np.testing.assert_array_equal(~np.isfinite(np.asarray(jwrench)),
+                                  ~torch.isfinite(wrench_from_impulses(ref_imp, 0.02)).numpy())

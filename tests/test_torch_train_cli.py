@@ -5,6 +5,8 @@ frame stack (``wrappers/frame_stack.py``).
   tests/test_runner.py's CLI smoke test does for the reference, in a
   subprocess, and writes ``nn/final``.
 - Asking for CUDA where there is none is an error, never a CPU run.
+- ``args.wandb_log=True`` without wandb installed prints the reference's
+  note and trains.
 - ``FrameStack`` against the reference's ``FrameStack`` on the same
   observation sequence: stacking only copies, so the two are equal.
 """
@@ -56,10 +58,23 @@ def test_cuda_without_a_card_is_an_error(device, monkeypatch, tmp_path):
     assert trunner.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("key", ["multihost", "wandb_log"])
+@pytest.mark.parametrize("key", ["multihost"])
 def test_cli_refuses_unported_args(key):
     with pytest.raises(NotImplementedError, match="item 14"):
         tcli.main([f"args.{key}=True", "args.device=cpu"])
+
+
+def test_cli_wandb_log_without_wandb_trains(tmp_path, capsys, monkeypatch):
+    """args.wandb_log=True where wandb is not installed: the reference
+    (scripts/train.py:43-55) prints a note and trains, and so does the port."""
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import wandb -> ImportError
+    tcli.main(["gym=trifinger_difficulty_1", "args.num_envs=8", "args.device=cpu",
+               "args.wandb_log=True", "gym.sim.substeps=1", "rlg.params.config.steps_num=2",
+               "rlg.params.config.mini_epochs=1", "args.max_epochs=1",
+               f"args.logdir={tmp_path}"])
+    assert "wandb not installed; continuing without it" in capsys.readouterr().out
+    (stamp,) = os.listdir(tmp_path)
+    assert torch.load(tmp_path / stamp / "nn" / "final", weights_only=True)["epoch"] == 1
 
 
 class _SeqEnv:

@@ -88,6 +88,7 @@ def main(argv) -> int:
     cuda_engine.build()
     info, occ = cuda_engine.build_info, cuda_engine.occupancy()
     print(f"{chip_smoke.smi()} this registers={info.get('registers')} "
+          f"stack_frame_bytes={info.get('stack_frame_bytes')} "
           f"spill_load_bytes={info.get('spill_load_bytes')} "
           f"dynamic_smem_bytes_per_block={occ['dynamic_smem_bytes']} "
           f"envs_per_block={occ['envs_per_block']} threads_per_block={4 * occ['envs_per_block']} "
@@ -96,6 +97,7 @@ def main(argv) -> int:
         threads = block or 32
         regs = -(-bi["registers"] // 8) * 8 * threads  # per block, allocated in units of 8
         print(f"{chip_smoke.smi()} {name} registers={bi.get('registers')} "
+              f"stack_frame_bytes={bi.get('stack_frame_bytes')} "
               f"spill_load_bytes={bi.get('spill_load_bytes')} "
               f"static_smem_bytes={bi.get('static_smem_bytes')} threads_per_block={threads} "
               f"resident_blocks_per_sm_by_registers={REGS_PER_SM // regs}", flush=True)
