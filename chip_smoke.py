@@ -77,9 +77,29 @@ Phases (each prints its own lines; any failure exits non-zero):
     URDFs parsed by the port's parser built here, and ``chain_physics_step``
     at 8192 envs in float32 on the card against float64 on the CPU for the
     first 64 envs (``CHAIN_TOL``), with ms per step.
+11. data parallelism (``leibnizgym_tpu_torch/parallel/``): (a) the D1 preset
+    at 8192 envs for 3 epochs through ``Runner.train`` as the one rank of an
+    NCCL process group, between two of the same run without one: parameters,
+    lr, losses and KL bitwise equal, or within what the two plain runs
+    differ by; 2 x 4 x 32 + 3 all-reduces and no all-gather per epoch; the
+    epoch split of all three and the epoch's collectives timed alone. (b)
+    two gloo ranks sharing cuda:0, 4096 envs each, 2 epochs (1 + 32 x 2
+    launches per rank, every kernel launch of the reset and the first epoch
+    recorded): each recorded launch of both ranks, joined to 8192 envs and
+    stepped once by the kernel, lands on the ranks' outputs within
+    KERNEL_TOL (the last also against the plain version with its
+    referees), and each rank's learner update on its half of a 1-rank
+    reference epoch's trajectory matches the reference update: its first
+    step's gradient (GRAD1_RTOL's note) and the whole epoch (DP_WITHIN's
+    note). (c) the dry run (two gloo ranks on the card, the flagship recipe
+    with 2 frames among its steps) while ``multihost_demo.py`` runs as two
+    more; (d) ``scaling_bench.py`` at 8192 envs per device on the card here;
+    (e) ``replay_viewer.py`` with the shipped ``d4_best_curriculum`` policy,
+    4 envs x 100 steps at level 1.0, each frame held to its env state, and
+    the GIF where matplotlib and Pillow are installed.
 The last two lines are the kernels' JSON record (times, flops, bytes and
 bound from phase 6; launches summed over the counted paths of phases 4-6
-and 8-10) and the device JSON line.
+and 8-11) and the device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
 
@@ -120,7 +140,7 @@ try:
         trajectory_parity,
         trifinger_random_action,
     )
-    from leibnizgym_tpu_torch.utils.helpers import smi
+    from leibnizgym_tpu_torch.utils.helpers import smi, synchronize
     from leibnizgym_tpu_torch.scripts.eval_policy import (
         goal_solve_stats,
         record_goals,
@@ -1191,6 +1211,585 @@ def tools_chain_variants(dev):
         check(ok, f"chain variant {rel}: card float32 vs CPU float64")
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+DP_EPOCHS = 3  # (a): a warm-up epoch, then 2 timed ones, per run
+DP_RANK_EPOCHS = 2  # (b): epochs of each gloo rank
+# (b) The learner update of one D1 epoch, fed the 1-rank run's trajectory in
+# two shards, against the 1-rank update: cuBLAS sums 4096 rows where the
+# 1-rank run sums 8192 and gloo averages the ranks' gradients, so losses and
+# KL agree to LEARNER_RTOL; lr is equal when no step's KL lands between the
+# two runs' roundings of an adaptive threshold; one Adam step moves a
+# parameter by ~lr whatever its gradient, so where a gradient is at rounding
+# level its steps may differ, and over the epoch's 256 steps such elements
+# add up: max |diff| <= 2 lr_max x steps, and >= DP_SHARE of the elements
+# within DP_WITHIN. Measured on the H100 (tools/dp_cards.py): two ranks
+# 99.586% within 1e-5, losses and KL 1.617e-5 relative; planted faults 1.6%
+# (each rank's own gradients) and 39.1% (the ranks' sum). Whether a sound
+# epoch stays within it depends on which rounding the 256 steps amplify:
+# four NCCL ranks on four cards 99.586%, four gloo ranks on one card 78.8%,
+# the 1-rank update with every observation one ulp up 75.4%. So it is held
+# here, for the two ranks it was measured on; the first step's gradient is
+# the criterion that holds at every world size:
+DP_WITHIN, DP_SHARE = 1e-5, 0.99
+# The first actor-critic step's gradient, after the ranks' all-reduce, against
+# the 1-rank one, as max |diff| / max |1-rank|: the same float32 sums over
+# 8192 rows taken in W pieces round apart by ~sqrt(rows) ulps of the largest
+# terms, ~1e-6; a rank stepping on its own shard's gradient, or on the ranks'
+# sum, is off by a sampling error or a factor. No earlier step can have
+# amplified anything here. Measured on the H100: 1.6e-7 (two ranks), 1.1e-7
+# (four), the faults 6.5e-2 to 3.0.
+GRAD1_RTOL = 1e-4
+VIEW_ENVS, VIEW_STEPS, VIEW_POLICY = 4, 100, "d4_best_curriculum"
+# (e) a frame's tips are the forward kinematics on the card against the same
+# on the CPU (sin / cos an ulp apart), its cube rotation the same formula;
+# the cube position and goal are copies, compared exactly
+VIEW_TOL = 1e-6
+
+
+def dp_run(cfg, dev, tag: str) -> dict:
+    """The D1 preset through Runner.train for DP_EPOCHS epochs, as one rank
+    of the process group where there is one: its learner after the run, its
+    per-epoch losses, KL and lr, the collectives of each epoch, the kernel
+    launches and the epoch split."""
+    marks, history, counts = [], [], []
+    with tempfile.TemporaryDirectory() as logdir:
+        runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                        seed=SEED, device=dev)
+        check_d1_widths(tag, runner)
+        marked = marked_train_iter(history, marks)
+
+        def train_iter(*args):
+            if runner.shard is not None:
+                runner.shard.counts.clear()
+            metrics = marked(*args)
+            counts.append(dict(runner.shard.counts) if runner.shard is not None else {})
+            return metrics
+
+        runner._train_iter = train_iter
+        cuda_engine.launch_count = 0
+        runner.reset()
+        runner.train(max_epochs=DP_EPOCHS)
+        synchronize(dev)
+        launches = cuda_engine.launch_count
+        if runner.writer is not None:
+            runner.writer.close()
+    h, n = runner.ppo_cfg.horizon, runner.static.num_envs
+    check(launches == 1 + h * DP_EPOCHS, f"{tag} launch_count {launches} != {1 + h * DP_EPOCHS}")
+    rows = check_epoch_metrics(tag, history, DP_EPOCHS, h, n)
+    learner = {f"{net}.{k}": v.detach().clone() for net, mod in
+               (("ac", runner.ts.actor_critic), ("cv", runner.ts.central_value))
+               for k, v in mod.state_dict().items()}
+    learner["lr"] = runner.ts.lr.clone()
+    for e, r in enumerate(rows):
+        for k in ("losses/total", "losses/a_loss", "losses/c_loss", "losses/cv_loss", "info/kl"):
+            learner[f"epoch{e + 1}/{k}"] = torch.tensor(r[k], dtype=torch.float64)
+    return {"learner": learner, "counts": counts, "launches": launches,
+            "split": print_epoch_split(tag, marks, DP_EPOCHS, h, n), "history": history}
+
+
+def learner_diff(a: dict, b: dict) -> dict:
+    return {k: float((a[k].double() - b[k].double()).abs().max()) for k in a}
+
+
+def time_collectives(dev, metrics: dict, num_envs: int, reps: int = 3) -> dict:
+    """One D1 epoch's collectives alone, in this process's group: 128
+    packed all-reduces of the actor-critic's gradients and KL, 128 of the
+    central value's, the advantages' two and the metrics' one, on tensors
+    of the D1 shapes; device ms (CUDA events) and host ms per epoch."""
+    from leibnizgym_tpu_torch.parallel.mesh import (
+        all_reduce_mean_, data_shard, global_mean_std, reduce_metrics)
+
+    shard = data_shard(num_envs)
+    gen = torch.Generator().manual_seed(SEED)
+    ac = tnets.ActorCritic(41, 9, (400, 200, 100), generator=gen).to(dev)
+    cv = tnets.CentralValue(113, (400, 200, 100), generator=gen).to(dev)
+    ac_grads = [torch.randn_like(p) for p in ac.parameters()] + [torch.zeros(1, device=dev)]
+    cv_grads = [torch.randn_like(p) for p in cv.parameters()]
+    advs = torch.randn((32, num_envs), device=dev)
+
+    def epoch():
+        for _ in range(128):
+            all_reduce_mean_(ac_grads, shard)
+        for _ in range(128):
+            all_reduce_mean_(cv_grads, shard)
+        global_mean_std(advs, shard)
+        reduce_metrics(metrics, shard)
+
+    epoch()
+    torch.cuda.synchronize()
+    shard.counts.clear()
+    t0 = time.perf_counter()
+    ms = cuda_ms(epoch, reps)
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return {"device_ms": ms, "host_ms": host_ms, "all_reduce": shard.counts["all_reduce"] // reps,
+            "ac_bytes": sum(g.numel() for g in ac_grads) * 4,
+            "cv_bytes": sum(g.numel() for g in cv_grads) * 4}
+
+
+def phase_parallel(dev, num_envs: int = 8192):
+    """Data-parallel training on the card: (a) one NCCL rank against no
+    process group, (b) two gloo ranks sharing the card against one rank, (c)
+    the dry run and the multihost demo, (d) the scaling bench, (e) the
+    replay viewer. Returns the kernel launches of the counted paths."""
+    import torch.distributed as dist
+
+    launches = {}
+    cfg = d1_config(num_envs)
+    # (a) the same seed and preset without a process group (before and
+    # after: the run-to-run spread, and the host's drift) and as the one
+    # rank of an NCCL group
+    plain = [dp_run(cfg, dev, "dp_plain_1")]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            grp = dp_run(cfg, dev, "dp_nccl_w1")
+            coll = time_collectives(dev, dict(grp["history"][-1]), num_envs)
+        finally:
+            dist.destroy_process_group()
+    plain.append(dp_run(cfg, dev, "dp_plain_2"))
+    launches["a"] = grp["launches"]
+    spread, diff = learner_diff(plain[1]["learner"], plain[0]["learner"]), learner_diff(
+        grp["learner"], plain[0]["learner"])
+    worse = [k for k in diff if diff[k] > spread[k]]
+    bitwise = all(v == 0.0 for v in diff.values())
+    print(f"dp (a) nccl_w1_vs_plain max_abs={max(diff.values()):.3e} "
+          f"plain_vs_plain max_abs={max(spread.values()):.3e} bitwise={bitwise} "
+          f"beyond_plain_spread={worse}", flush=True)
+    check(not worse, f"dp (a): NCCL W=1 differs from the plain run beyond its spread: {worse}")
+    steps = 2 * 4 * 32  # (4 actor + 4 central-value mini-epochs) x 32 minibatches
+    for e, c in enumerate(grp["counts"], 1):
+        check(c.get("all_reduce") == steps + 3 and not c.get("all_gather"),
+              f"dp (a) epoch {e} collectives {c} != {steps + 3} all-reduces")
+    print(f"{smi()} dp (a) collectives_per_epoch={grp['counts'][-1]} "
+          f"update_ms plain={plain[0]['split']['update']:.3f},{plain[1]['split']['update']:.3f} "
+          f"nccl_w1={grp['split']['update']:.3f} epoch_ms plain={plain[0]['split']['epoch']:.3f},"
+          f"{plain[1]['split']['epoch']:.3f} nccl_w1={grp['split']['epoch']:.3f} "
+          f"collectives_alone device_ms={coll['device_ms']:.3f} host_ms={coll['host_ms']:.3f} "
+          f"all_reduce={coll['all_reduce']} ac_bytes={coll['ac_bytes']} "
+          f"cv_bytes={coll['cv_bytes']}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["b"] = dp_ranks(dev, cfg, num_envs, tmp, world=2)["launches"]
+        launches["c"] = dp_dryrun_and_demo(dev, tmp)
+    launches["d"] = dp_scaling_bench(dev, num_envs)
+    launches["e"] = dp_replay_viewer(dev)
+    print("dp launches " + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    return {"launches": sum(launches.values())}
+
+
+TRAJ_FIELDS = ("obs", "states", "action", "mu", "log_std", "neglogp", "value", "reward", "done")
+
+
+def dp_ranks(dev, cfg, num_envs: int, tmp, world: int, backend: str = "gloo",
+             spread: bool = False, whole_epoch: bool = True, faults=(),
+             control: bool = False, tag: str = "dp (b)") -> dict:
+    """The 1-rank reference epoch here, then ``world`` ranks (``rank_worker``)
+    under ``backend``, all on ``dev`` or, with ``spread``, each on its own
+    card: each rank's one-step replay against the 1-rank kernel, its learner
+    update on its shard of the reference trajectory (``update_vs_reference``
+    with ``whole_epoch``; the figures print either way), and the free run's
+    first epoch against the reference's, step by step (ungated). Each of
+    ``faults`` (``FAULTS``) then reruns the update with that fault planted,
+    which the update's criterion must reject; ``control`` adds the 1-rank
+    update on the reference trajectory with its observations one ulp up,
+    printed with the same figures. Returns the ranks' launches and each
+    rank's, fault's and the control's update figures."""
+    from leibnizgym_tpu_torch.parallel.launch import launch
+
+    with tempfile.TemporaryDirectory() as logdir:
+        runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                        seed=SEED, device=dev)
+        runner.reset()
+        ts, pcfg = runner.ts, runner.ppo_cfg
+        before = _cpu(runner._ckpt_payload(clone=True))
+        ts.carry, traj = ppo.rollout(pcfg, runner.static, runner.env_params, ts.carry,
+                                     ts.actor_critic, ts.central_value, generator=ts.generator)
+        with torch.no_grad():
+            _, _, last_value = ppo.policy_and_value(ts.actor_critic, ts.central_value,
+                                                    ts.carry.obs, ts.carry.states)
+        perms = ppo.draw_permutations(pcfg, pcfg.horizon, num_envs, True, ts.generator, dev)
+        steps, grads = [], {}
+        metrics = recorded_update(pcfg, ts, traj, last_value, perms, steps, grads)
+        ref = {"learner": _cpu(runner._ckpt_payload()), "steps": steps, "grads": grads,
+               "metrics": {k: float(metrics[k]) for k in DP_METRICS}}
+        ref_traj = {k: getattr(traj, k).cpu() for k in ("obs", "action")}
+        if control:
+            # the same update with every observation one ulp up: how far the
+            # 256 steps carry a rounding-sized change of their inputs
+            restore_learner(ts, before)
+            up = dataclasses.replace(traj, obs=torch.nextafter(
+                traj.obs, torch.full_like(traj.obs, float("inf"))))
+            c_steps, c_grads = [], {}
+            c_metrics = recorded_update(pcfg, ts, up, last_value, perms, c_steps, c_grads)
+            ulp = {"learner": _cpu(runner._ckpt_payload()), "grads": c_grads,
+                   "metrics": {k: float(c_metrics[k]) for k in DP_METRICS}}
+        if runner.writer is not None:
+            runner.writer.close()
+    path = os.path.join(tmp, "reference_epoch.pt")
+    torch.save({"before": before, "last_value": last_value.cpu(),
+                "perms": [p.cpu() for p in perms], "fin_ret": traj.fin_ret.cpu(),
+                "fin_n": traj.fin_n.cpu(),
+                "traj": {k: getattr(traj, k).cpu() for k in TRAJ_FIELDS}}, path)
+    job = dict(path=path, logdir=os.path.join(tmp, "logs"), num_envs=num_envs,
+               device="cuda" if spread else str(dev))
+    t0 = time.perf_counter()
+    ranks = launch("chip_smoke:rank_worker", world, dict(job, epochs=DP_RANK_EPOCHS),
+                   backend=backend, timeout=600)
+    wall_s = time.perf_counter() - t0
+    h = pcfg.horizon
+    for r, out in enumerate(ranks):
+        check(out["launches"] == 1 + h * DP_RANK_EPOCHS,
+              f"{tag} rank {r} launch_count {out['launches']} != {1 + h * DP_RANK_EPOCHS}")
+        for e, c in enumerate(out["counts"], 1):
+            check(c.get("all_reduce") == 2 * 4 * 32 + 3 and not c.get("all_gather"),
+                  f"{tag} rank {r} epoch {e} collectives {c}")
+    # one-step replay: every recorded launch of every rank, joined to the
+    # global envs, stepped once by the kernel in one launch, lands on the
+    # ranks' recorded outputs; the last one also against the plain version
+    rec = [out["records"] for out in ranks]
+    check(len(rec[0]) == 1 + h, f"{tag} {len(rec[0])} kernel launches recorded, not {1 + h}")
+    worst, ok = {}, bool(rec[0])
+    for k in range(len(rec[0])):
+        s31, p40, t9, out31, imp = (torch.cat([r[k][i] for r in rec], 1).to(dev) for i in range(5))
+        mine, mine_imp = cuda_engine.step_packed_cuda(s31, p40, t9, runner.static.solver,
+                                                      runner.static.dt)
+        ok &= bool(env_within(out31, imp, mine, mine_imp).all())
+        for f, v in max_diffs(out31, imp, mine, mine_imp).items():
+            worst[f] = max(worst.get(f, 0.0), v)
+    print(f"{tag} {world}_{backend}_ranks_vs_one_rank_kernel recorded_launches={len(rec[0])} "
+          + " ".join(f"{k}={v:.3e}" for k, v in worst.items()) + f" within_tol={ok}", flush=True)
+    check(ok, f"{tag}: a rank's recorded step is not the 1-rank kernel's")
+    if rec[0]:
+        kernel_vs_plain(f"{tag} last recorded step, every rank", (s31, p40, t9),
+                        runner.static.solver, runner.static.dt, referee=True,
+                        result=(out31, imp))
+    # the learner update on the reference's trajectory, in W shards
+    lr_max = max([pcfg.learning_rate] + [lr for _, lr in ref["steps"]])
+    updates = []
+    for r, out in enumerate(ranks):
+        u = update_vs_reference(out, ref, lr_max, whole_epoch)
+        updates.append(u)
+        print(f"{smi()} {tag} rank {r} update_on_reference_trajectory {update_figures(u)} "
+              f"ref_lr={float(ref['learner']['lr']):.6g} within_tol={u['good']} "
+              f"launches={out['launches']} "
+              f"epoch_s={','.join(f'{x:.3f}' for x in out['epoch_s'])}", flush=True)
+        check(u["good"], f"{tag} rank {r}: the update on the reference trajectory")
+    # the free runs, ungated: every rank's first epoch against the reference
+    # epoch (the 1-rank run's first, same seed and draws); the ranks' smaller
+    # matmuls may round the actions apart and contacts amplify it
+    obs = torch.cat([out["first"]["traj"]["obs"] for out in ranks], 1)
+    act = torch.cat([out["first"]["traj"]["action"] for out in ranks], 1)
+    d_obs = (obs - ref_traj["obs"]).abs().amax(dim=(1, 2))
+    d_act = (act - ref_traj["action"]).abs().amax(dim=(1, 2))
+    steps_shown = sorted({t for t in (0, 1, 2, 4, 8, 16) if t < h} | {h - 1})
+    print(f"{tag} free_run_vs_1_rank epoch 1 max_abs_obs_by_step=" + ",".join(
+        f"{t}:{float(d_obs[t]):.3e}" for t in steps_shown) + " max_abs_action_by_step="
+        + ",".join(f"{t}:{float(d_act[t]):.3e}" for t in steps_shown) + " losses_kl 1_rank="
+        + ",".join(f"{v:.6g}" for v in ref["metrics"].values()) + f" {world}_ranks="
+        + ",".join(f"{v:.6g}" for v in ranks[0]["first"]["metrics"].values()), flush=True)
+    print(f"{tag} {world}_ranks wall_s={wall_s:.1f}", flush=True)
+    planted = {}
+    for fault in faults:
+        out = launch("chip_smoke:rank_worker", world, dict(job, epochs=0, fault=fault),
+                     backend=backend, timeout=600)[0]
+        u = planted[fault] = update_vs_reference(out, ref, lr_max, whole_epoch)
+        print(f"{smi()} {tag} planted_fault={fault} {update_figures(u)} "
+              f"ref_lr={float(ref['learner']['lr']):.6g} rejected={not u['good']}", flush=True)
+        check(not u["good"], f"{tag}: the update criterion passed the planted fault {fault}")
+    control_figures = None
+    if control:
+        control_figures = update_vs_reference(ulp, ref, lr_max, whole_epoch)
+        print(f"{smi()} {tag} control one_rank_obs_one_ulp_up {update_figures(control_figures)}",
+              flush=True)
+    return {"launches": sum(out["launches"] for out in ranks), "updates": updates,
+            "planted": planted, "control": control_figures,
+            "free_run": {"obs": d_obs.tolist(), "action": d_act.tolist()}}
+
+
+def update_vs_reference(out: dict, ref: dict, lr_max: float, whole_epoch: bool) -> dict:
+    """A rank's update on its shard of the reference trajectory against the
+    reference update: its first step's gradient (GRAD1_RTOL's note) and,
+    with ``whole_epoch``, the epoch's losses, KL, lr and parameters
+    (DP_WITHIN's note)."""
+    rel = max(abs(out["metrics"][k] - v) / max(abs(v), 1e-6) for k, v in ref["metrics"].items())
+    g, g_ref = out["grads"]["first"], ref["grads"]["first"]
+    grad1 = float((g - g_ref).abs().max() / g_ref.abs().max())
+    norms = [abs(a - b) / b for a, b in zip(out["grads"]["norms"], ref["grads"]["norms"])]
+    d = torch.cat([(out["learner"][part][k] - v).abs().reshape(-1)
+                   for part in ("ac_state_dict", "cv_state_dict")
+                   for k, v in ref["learner"][part].items()])
+    within = float((d <= DP_WITHIN).double().mean())
+    lr = float(out["learner"]["lr"])
+    good = grad1 <= GRAD1_RTOL and (not whole_epoch or (
+        rel <= LEARNER_RTOL and lr == float(ref["learner"]["lr"]) and within >= DP_SHARE
+        and float(d.max()) <= 2 * lr_max * len(ref["steps"])))
+    return {"loss_kl_rel": rel, "param_max_abs": float(d.max()), "within": within, "lr": lr,
+            "grad1_rel": grad1, "grad_norm_rel": norms, "good": good}
+
+
+def update_figures(u: dict) -> str:
+    shown = [t for t in (1, 2, 4, 8, 16, 32, 64, 128) if t <= len(u["grad_norm_rel"])]
+    return (f"grad1_rel={u['grad1_rel']:.3e} grad_norm_rel_by_step="
+            + ",".join(f"{t}:{u['grad_norm_rel'][t - 1]:.2e}" for t in shown)
+            + f" loss_kl_rel={u['loss_kl_rel']:.3e} param_max_abs={u['param_max_abs']:.3e} "
+            f"param_within_1e-5={u['within']:.6f} lr={u['lr']:.6g}")
+
+
+DP_METRICS = ("losses/total", "losses/a_loss", "losses/c_loss", "losses/entropy",
+              "losses/cv_loss", "info/kl")
+
+
+def recorded_update(pcfg, ts, traj, last_value, perms, steps: list, grads: dict = None):
+    """``ppo.update`` recording every actor-critic step's (KL, new lr) and,
+    into ``grads``, the gradients that reach the actor-critic's optimizer
+    (after the ranks' all-reduce, before the clip): the first step's as one
+    flat CPU tensor ("first") and every step's norm ("norms")."""
+    step, opt_step = ppo.actor_critic_step, ts.ac_opt.step
+
+    def recording(cfg, ac, opt, lr, mb, shard=None):
+        new_lr, terms = step(cfg, ac, opt, lr, mb, shard)
+        steps.append((float(terms[4]), float(new_lr)))
+        return new_lr, terms
+
+    def recording_opt(g, lr, want_norm=False):
+        flat = torch.cat([x.reshape(-1) for x in g])
+        grads.setdefault("first", flat.cpu())
+        grads.setdefault("norms", []).append(float(flat.norm()))
+        return opt_step(g, lr, want_norm)
+
+    ppo.actor_critic_step = recording
+    if grads is not None:
+        ts.ac_opt.step = recording_opt
+    try:
+        return ppo.update(pcfg, ts, traj, last_value, perms=perms)
+    finally:
+        ppo.actor_critic_step = step
+        ts.ac_opt.__dict__.pop("step", None)
+
+
+def restore_learner(ts, before: dict) -> None:
+    """The learner of the checkpoint payload ``before`` into ``ts``."""
+    ts.actor_critic.load_state_dict(before["ac_state_dict"])
+    ts.central_value.load_state_dict(before["cv_state_dict"])
+    ts.ac_opt.load_state_dict(before["ac_opt_state"])
+    ts.cv_opt.load_state_dict(before["cv_opt_state"])
+    ts.lr = before["lr"].to(ts.lr.device).clone()
+
+
+def _cpu(x):
+    if torch.is_tensor(x):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: _cpu(v) for k, v in x.items()}
+    return x
+
+
+# faults that rank_worker can plant in the update's gradient all-reduces,
+# each of which the update criterion must reject: no all-reduce (each rank
+# steps on its own shard's gradients and KL), and the ranks' sum where their
+# mean belongs
+FAULTS = ("local_gradients", "summed_gradients")
+
+
+def rank_worker(path: str, epochs: int, logdir: str, num_envs: int, device: str,
+                fault: str = None) -> dict:
+    """One of (b)'s ranks on ``device`` ("cuda": the card of its rank; run
+    by ``parallel.launch``): the D1 preset's main path through Runner.train
+    with its share of the envs for ``epochs`` epochs, each kernel launch of
+    the reset and the first epoch recorded; then the learner update on this
+    rank's shard of the reference trajectory, with ``fault`` (one of
+    FAULTS) planted in its gradient all-reduces."""
+    import torch.distributed as dist
+
+    from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(f"cuda:{dist.get_rank()}" if device == "cuda" else device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    cfg = d1_config(num_envs)
+    records, step_launch = [], cuda_engine.step_packed_cuda
+    runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir, seed=SEED,
+                    device=dev)
+    h = runner.ppo_cfg.horizon
+
+    def recording(*args):
+        out = step_launch(*args)
+        if len(records) < 1 + h:
+            records.append(tuple(x.cpu() for x in args[:3] + out))
+        return out
+
+    counts, epoch_s, first, base, rollout = [], [], {}, runner._train_iter, ppo.rollout
+
+    def train_iter(*args):
+        runner.shard.counts.clear()
+        t0 = time.perf_counter()
+        metrics = base(*args)
+        epoch_s.append(time.perf_counter() - t0)
+        counts.append(dict(runner.shard.counts))
+        first.setdefault("metrics", {k: float(metrics[k]) for k in DP_METRICS})
+        return metrics
+
+    def first_rollout(*args, **kw):  # the free run's first epoch, for (b)'s report
+        carry, traj = rollout(*args, **kw)
+        first.setdefault("traj", {k: getattr(traj, k).cpu() for k in ("obs", "action")})
+        return carry, traj
+
+    runner._train_iter = train_iter
+    cuda_engine.step_packed_cuda, ppo.rollout = recording, first_rollout
+    try:
+        cuda_engine.launch_count = 0
+        runner.reset()
+        if epochs:
+            runner.train(max_epochs=epochs)
+        synchronize(dev)
+        launches = cuda_engine.launch_count
+    finally:
+        cuda_engine.step_packed_cuda, ppo.rollout = step_launch, rollout
+
+    ref = torch.load(path, map_location=dev, weights_only=True)
+    shard, ts = runner.shard, runner.ts
+    restore_learner(ts, ref["before"])
+    traj = ppo.Trajectory(**{k: shard.take(v, 1) for k, v in ref["traj"].items()},
+                          fin_ret=shard.take(ref["fin_ret"]), fin_n=shard.take(ref["fin_n"]),
+                          fin_suc=torch.zeros((), device=dev), info={})
+
+    def summed(tensors, shard):
+        all_reduce_mean_(tensors, shard)
+        torch._foreach_mul_(list(tensors), float(shard.world))
+
+    ppo.all_reduce_mean_ = {None: all_reduce_mean_, "local_gradients": lambda *_: None,
+                            "summed_gradients": summed}[fault]
+    steps, grads = [], {}
+    try:
+        metrics = recorded_update(runner.ppo_cfg, ts, traj,
+                                  shard_batch(ref["last_value"], shard), ref["perms"], steps,
+                                  grads)
+    finally:
+        ppo.all_reduce_mean_ = all_reduce_mean_
+    if runner.writer is not None:
+        runner.writer.close()
+    return {"launches": launches, "counts": counts, "epoch_s": epoch_s, "first": first,
+            "records": [list(r) for r in records],
+            "metrics": {k: float(metrics[k]) for k in DP_METRICS},
+            "learner": _cpu(runner._ckpt_payload()), "grads": grads}
+
+
+def dp_dryrun_and_demo(dev, tmp) -> int:
+    """(c): the dry run (two gloo ranks on cuda:0, tiny shapes) while
+    ``multihost_demo.py`` runs as two more gloo processes on the card."""
+    from leibnizgym_tpu_torch.graft_entry import dryrun_multichip
+
+    env = dict(os.environ, COORD_ADDR=f"file://{tmp}/demo_rendezvous", ENVS_PER_DEVICE="64",
+               PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    demo = [subprocess.Popen([sys.executable, "-m", "leibnizgym_tpu_torch.scripts.multihost_demo",
+                              str(r), "2", "--backend", "gloo", "--device", str(dev)],
+                             cwd=ROOT, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+    try:
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(2, str(dev))
+        dry_s = time.perf_counter() - t0
+        outs = [p.communicate(timeout=600)[0] for p in demo]
+    finally:
+        for p in demo:
+            p.kill()
+    # per rank: reset + step, then two dry-run epochs of 1 + 4 launches
+    want = 2 + 2 * (1 + 4)
+    for r, out in enumerate(dry):
+        check(out["kernel_launches"] == want and out["obs_finite"]
+              and np.isfinite(out["flagship_loss"]) and out["flagship_obs_width"] == 2 * 89,
+              f"dp (c) dry run rank {r}: {out}")
+    lines = [line for out in outs for line in out.splitlines() if "train steps OK" in line]
+    losses = {line.split("loss", 1)[1] for line in lines}
+    check(all(p.returncode == 0 for p in demo) and len(lines) == 2 and len(losses) == 1,
+          f"dp (c) multihost demo: {[o[-1500:] for o in outs]}")
+    print(f"dp (c) dryrun ranks=2 launches={[o['kernel_launches'] for o in dry]} "
+          f"loss={dry[0]['loss']:.6f} flagship_loss={dry[0]['flagship_loss']:.6f} "
+          f"seconds={dry_s:.1f} demo={lines}", flush=True)
+    return sum(o["kernel_launches"] for o in dry)
+
+
+def dp_scaling_bench(dev, num_envs: int) -> int:
+    """(d): scaling_bench.py at 8192 envs per device on the one card here,
+    with the training epoch."""
+    from leibnizgym_tpu_torch.scripts import scaling_bench
+
+    steps = 50
+    rows = scaling_bench.main(["--envs-per-device", str(num_envs), "--steps", str(steps),
+                               "--train", "--device-counts", "1", "--device", dev.type])
+    # reset, warm-up and timed rollouts; train: reset, a warm-up and 3 timed epochs of 8
+    want = 1 + 2 * steps + 1 + 4 * 8
+    check(rows[0]["kernel_launches"] == want, f"dp (d) bench launches {rows[0]} != {want}")
+    print(f"{smi()} dp (d) scaling_bench envs_per_device={num_envs} " + " ".join(
+        f"devices={r['devices']} rollout_env_steps_per_s={r['rollout_sps']:.1f} "
+        f"train_env_steps_per_s={r['train_sps']:.1f} scaling_eff={r['scaling_eff']:.1f}"
+        for r in rows), flush=True)
+    return rows[0]["kernel_launches"]
+
+
+def dp_replay_viewer(dev) -> int:
+    """(e): replay_viewer.py with a shipped policy on the card, each frame
+    held to the env state it was taken from (recomputed on the CPU); the
+    GIF where matplotlib and Pillow are installed."""
+    import importlib.util
+
+    from leibnizgym_tpu_torch.scripts import replay_viewer
+    from leibnizgym_tpu_torch.utils.viewer import extract_frame
+
+    args = replay_viewer.parser().parse_args([
+        "--gym", "trifinger_difficulty_4_curriculum", "--num-envs", str(VIEW_ENVS),
+        "--steps", str(VIEW_STEPS), "--level", "1.0", "--env-index", "1", "--device", str(dev),
+        "--checkpoint", os.path.join(POLICY_DIR, VIEW_POLICY + ".npz")])
+    env, ppo_cfg = replay_viewer.make_env(args)
+    states, step = [], env.step
+
+    def recording(*a, **kw):
+        out = step(*a, **kw)
+        states.append((_cpu(tenv.env_state_tensors(env.state)), env.state.frames))
+        return out
+
+    env.step = recording
+    cuda_engine.launch_count = 0
+    t0 = time.perf_counter()
+    frames = replay_viewer.record_rollout(env, args.steps, args.checkpoint, args.env_index,
+                                          ppo_cfg=ppo_cfg)
+    synchronize(dev)
+    wall_s, launches = time.perf_counter() - t0, cuda_engine.launch_count
+    check(launches == 1 + VIEW_STEPS, f"dp (e) replay launches {launches} != {1 + VIEW_STEPS}")
+    worst = {}
+    for f, (tensors, n_frames) in zip(frames, states):
+        ref = extract_frame(tenv.env_state_from_tensors(tensors, n_frames), args.env_index)
+        for k in ref:
+            worst[k] = max(worst.get(k, 0.0), float(np.abs(f[k] - ref[k]).max()))
+    exact = worst["cube_pos"] == 0.0 and worst["goal"] == 0.0
+    check(len(frames) == VIEW_STEPS and exact and max(worst.values()) <= VIEW_TOL,
+          f"dp (e) frames vs env states {worst}")
+    renderer = all(importlib.util.find_spec(m) is not None for m in ("matplotlib", "PIL"))
+    note = "host renderer missing: matplotlib or Pillow is not installed here; no GIF written"
+    if renderer:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "replay.gif")
+            replay_viewer.write_gif(frames[::args.stride], out)
+            from PIL import Image
+
+            with Image.open(out) as gif:
+                n_frames = gif.n_frames
+            size = os.path.getsize(out)
+        check(n_frames == len(frames[::args.stride]) and size > 0, f"dp (e) gif {n_frames}")
+        note = f"gif_frames={n_frames} gif_bytes={size}"
+    print(f"dp (e) replay_viewer policy={VIEW_POLICY} envs={VIEW_ENVS} steps={VIEW_STEPS} "
+          f"launches={launches} wall_s={wall_s:.2f} frame_vs_state_max_abs="
+          + ",".join(f"{k}:{v:.3e}" for k, v in worst.items()) + f" {note}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1234,16 +1833,18 @@ def main() -> int:
     bf16 = timed("phase 8", phase_bf16, dev, records["train"].pop("split"))
     nan = timed("phase 9", phase_nan, dev)
     tools = timed("phase 10", phase_tools, dev)
+    dp = timed("phase 11", phase_parallel, dev)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
     print(smi(), flush=True)
     # phase 6 gives the times and the bound; the launches are every counted
-    # path's (phases 4-6 and 8-10); the error is the worst of phases 4-6
+    # path's (phases 4-6 and 8-11); the error is the worst of phases 4-6
     paths = {"phase 4": records["slice"]["launches"], "phase 5": records["train"]["launches"],
              "phase 6": records["d4"]["launches"], "phase 8": bf16["launches"],
-             "phase 9": nan["launches"], "phase 10": tools["launches"]}
+             "phase 9": nan["launches"], "phase 10": tools["launches"],
+             "phase 11": dp["launches"]}
     print("launches " + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in paths.items()),
           flush=True)
     record = dict(records["d4"], launches=sum(paths.values()),

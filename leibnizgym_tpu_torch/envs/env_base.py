@@ -2,8 +2,8 @@
 
 Carries what is shared across tasks: the config merge against the sim
 defaults, spec bookkeeping and the buffer-shaped property surface, an
-explicit ``device`` and the ``torch.Generator`` that all of the env's random
-draws come from.
+explicit ``device``, the ``torch.Generator`` that all of the env's random
+draws come from, and ``render()``, the live viewer of env 0.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Dict, Optional
 import torch
 
 from leibnizgym_tpu_torch.utils.helpers import merged_dict, resolve_device
-from leibnizgym_tpu_torch.utils.message import print_dict, print_info
+from leibnizgym_tpu_torch.utils.message import print_dict, print_info, print_warn
 
 # default simulator configuration (the same keys and values as the reference
 # package; PhysX-only knobs are accepted and ignored)
@@ -55,12 +55,13 @@ class EnvBase:
 
     def __init__(self, obs_spec: Dict[str, int], action_spec: Dict[str, int],
                  state_spec: Dict[str, int], config: Optional[dict] = None,
-                 device="cuda:0", verbose: bool = True):
+                 device="cuda:0", verbose: bool = True, visualize: bool = False):
         self.obs_spec = dict(obs_spec)
         self.action_spec = dict(action_spec)
         self.state_spec = dict(state_spec)
         self.device = resolve_device(device)
         self.verbose = verbose
+        self.visualize = visualize
         self.config = merged_dict(dict(SIM_DEFAULT_CONFIG_DICT), config or {})
         if verbose:
             print_info("Environment configuration:")
@@ -129,6 +130,38 @@ class EnvBase:
             os.makedirs(dir_name, exist_ok=True)
         with open(filename, "w") as f:
             yaml.dump(self.config, f)
+
+    def render(self):
+        """Live interactive view of env 0 (reference env_base.py:403-427:
+        draw the viewer, poll the ESC / V keyboard events). Needs
+        ``visualize=True`` (the reference's ``not headless``) and a
+        matplotlib GUI backend. Without ``visualize`` it warns once; where
+        the viewer cannot open (no display) it warns once and turns
+        rendering off. Only the window is skipped then: the env, its device
+        and its physics run as before."""
+        if not self.visualize:
+            if not getattr(self, "_render_warned", False):
+                self._render_warned = True
+                print_warn(
+                    "render() called with visualize=False; pass visualize=True "
+                    "(args.headless=False) for the live viewer, or use "
+                    "leibnizgym_tpu_torch/scripts/replay_viewer.py offline."
+                )
+            return
+        if getattr(self, "_viewer_failed", False):
+            return
+        viewer = getattr(self, "_viewer", None)
+        if viewer is None:
+            try:
+                from leibnizgym_tpu_torch.utils.viewer import LiveViewer
+
+                viewer = self._viewer = LiveViewer()
+            except Exception as e:  # the window alone: no GUI backend, no display
+                self._viewer_failed = True
+                print_warn(f"live viewer unavailable ({e}); rendering off")
+                return
+        if not viewer.update(self.state):
+            self.visualize = False  # ESC: stop rendering (reference QUIT)
 
     def close(self):
         pass

@@ -51,6 +51,7 @@ from leibnizgym_tpu_torch.envs.trifinger.rewards import (
 from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda, physics_step_plain
 from leibnizgym_tpu_torch.ops.engine_v2 import fingertip_components_v2
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
+from leibnizgym_tpu_torch.parallel.mesh import shard_batch
 from leibnizgym_tpu_torch.utils.math import (
     saturate,
     scale_transform,
@@ -105,6 +106,13 @@ class EnvStatic:
     obs_noise_std: float  # in normalized obs units, policy obs only; 0: off
     reward_specs: Tuple[RewardTermSpec, ...]
     solver: SolverConfig
+    # envs over every rank of a data-parallel run (0: num_envs, one process);
+    # the env-step counters that drive the frame-ramped curricula count them
+    num_envs_global: int = 0
+
+    @property
+    def envs_counted(self) -> int:
+        return self.num_envs_global or self.num_envs
 
     @property
     def action_dim(self) -> int:
@@ -518,7 +526,7 @@ def _ori_difficulty_frac(static: EnvStatic, params: EnvParams, frames: int):
         t = torch.clamp(params.curriculum_level, 0.0, 1.0)
     elif static.ori_difficulty_anneal_frames > 0.0:
         env_steps = (torch.tensor(float(frames), device=params.curriculum_level.device)
-                     * static.num_envs)
+                     * static.envs_counted)
         t = torch.clamp(env_steps / static.ori_difficulty_anneal_frames, 0.0, 1.0)
     else:
         return None
@@ -897,8 +905,8 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     obj_pos_prev = tuple(state.obj_posquat_prev_cm[i] for i in range(3))
     obj_quat_prev = tuple(state.obj_posquat_prev_cm[i] for i in range(3, 7))
 
-    # float before `* n`: an integer product overflows past 2.1 B env steps
-    env_steps_count = torch.tensor(float(frames), device=tau.device) * n
+    # float before the product: an integer one overflows past 2.1 B env steps
+    env_steps_count = torch.tensor(float(frames), device=tau.device) * static.envs_counted
     half_cols = tuple(state.scene.cube_half_extents[:, i] for i in range(3))
     reward, term_values = compute_rewards_c(
         static.reward_spec_dict(), static.dt, env_steps_count,
@@ -1015,12 +1023,20 @@ def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None,
 
 class TrifingerEnv(EnvBase):
     """Stateful wrapper with the reference's public surface (``reset()``,
-    ``step(action)``, ``get_state()``, buffer properties) on a torch
-    ``device``: ``cuda:0`` unless the caller passes another (``device="cpu"``
-    on the CPU); asking for CUDA without a card is an error."""
+    ``step(action)``, ``get_state()``, ``render()``, buffer properties) on a
+    torch ``device``: ``cuda:0`` unless the caller passes another
+    (``device="cpu"`` on the CPU); asking for CUDA without a card is an
+    error. ``visualize`` opens the live viewer on ``render()``.
+
+    With a ``shard`` (``parallel.DataShard``) the env is this rank's part of
+    a data-parallel run: ``config["num_instances"]`` is the global count,
+    the env steps the shard's ``n_local`` envs, its draws are the global
+    blocks' rows of the shard, and the env-step counters count every
+    rank's envs."""
 
     def __init__(self, config: Optional[dict] = None, device="cuda:0",
-                 verbose: bool = True, dtype=torch.float32):
+                 verbose: bool = True, dtype=torch.float32, visualize: bool = False,
+                 shard=None):
         device = resolve_device(device)
         merged = merged_dict(dict(SIM_DEFAULT_CONFIG_DICT), TRIFINGER_DEFAULT_CONFIG_DICT)
         if config is not None:
@@ -1037,6 +1053,13 @@ class TrifingerEnv(EnvBase):
             else tuple(float(s) for s in object_size)
         )
         self.static = build_static(merged)
+        self.shard = shard
+        if shard is not None:
+            if shard.n_global != self.static.num_envs:
+                raise ValueError(f"shard of {shard.n_global} envs for num_instances "
+                                 f"{self.static.num_envs}")
+            self.static = dataclasses.replace(self.static, num_envs=shard.n_local,
+                                              num_envs_global=shard.n_global)
         density = merged.get("object_density")
         self.params = build_params(
             self.static, self._object_dims, arena=merged.get("arena"),
@@ -1056,7 +1079,8 @@ class TrifingerEnv(EnvBase):
             "fingertip_wrench": 18,
         } if self.static.asymmetric_obs else {}
         EnvBase.__init__(self, obs_spec, action_spec, state_spec, merged,
-                         device=device, verbose=False)
+                         device=device, verbose=False, visualize=visualize)
+        self.num_instances = self.static.num_envs
         self.verbose = verbose
         if verbose:
             print_info(
@@ -1070,8 +1094,7 @@ class TrifingerEnv(EnvBase):
         """Full reset; ``draws`` (``draw_init_randoms``' layout) are drawn from
         the env's generator unless given."""
         if draws is None:
-            draws = draw_init_randoms(self.static, self.generator, self.static.num_envs,
-                                      self.device, self.dtype)
+            draws = self._draw(draw_init_randoms)
         self._state, obs = env_reset(self.static, self.params, *draws)
         self._last = (obs, None, None, None, {})
         return obs
@@ -1086,13 +1109,19 @@ class TrifingerEnv(EnvBase):
                 f" != {expected}."
             )
         if draws is None:
-            draws = draw_step_randoms(self.static, self.generator, self.static.num_envs,
-                                      self.device, self.dtype)
+            draws = self._draw(draw_step_randoms)
         self._state, obs, states, reward, dones, info = env_step(
             self.static, self.params, self._state, action, draws
         )
         self._last = (obs, states, reward, dones, info)
         return obs, reward, dones, info
+
+    def _draw(self, draw):
+        """``draw``'s blocks from the env's generator: the global blocks'
+        rows of the shard under one, else this env's own."""
+        st = self.static
+        return shard_batch(draw(st, self.generator, st.envs_counted, self.device, self.dtype),
+                           self.shard)
 
     def get_state(self):
         return self._last[1]

@@ -18,6 +18,15 @@ stays a 0-d device tensor updated with ``torch.where``, so an epoch reads
 nothing back from the device. The modules and optimizer states are updated
 in place.
 
+A ``TrainState`` with a ``shard`` (``parallel.DataShard``) is one rank of a
+data-parallel run: its rollout steps the rank's envs with the global draws'
+rows (the permutations are then the same on every rank), and the epoch's
+batch-wide reductions become collectives (``parallel/mesh.py``): the
+advantage mean and std, each minibatch step's gradients (before the clip,
+so that it sees the global norm) with the step's KL packed in, the
+trajectory for the global-shuffle layout only, and the metrics. The
+time-sliced layout gathers nothing.
+
 ``network_dtype: bfloat16`` (or ``mixed_precision``) runs the towers'
 matmuls in bfloat16 (``models/networks.py``); the policy math (neglogp, KL,
 losses) and Adam stay float32. ``nan_telemetry`` adds the reference's
@@ -51,6 +60,15 @@ from leibnizgym_tpu_torch.models.networks import (
     gaussian_entropy,
     gaussian_kl,
     gaussian_neglogp,
+)
+from leibnizgym_tpu_torch.parallel.mesh import (
+    DataShard,
+    all_gather_envs,
+    all_reduce_mean_,
+    broadcast_,
+    global_mean_std,
+    reduce_metrics,
+    shard_batch,
 )
 
 
@@ -187,7 +205,10 @@ class ClippedAdam:
       ``1 - b ** count`` in float32 as optax computes it;
     - ``lr`` may be a 0-d device tensor.
 
-    ``max_norm`` None is ``truncate_grads: False``.
+    ``max_norm`` None is ``truncate_grads: False``. In a data-parallel
+    learner the minibatch steps average the gradients over the ranks before
+    ``step`` (as Horovod's distributed optimizer does), so every replica
+    steps alike.
     """
 
     b1, b2, eps = 0.9, 0.999, 1e-8
@@ -250,7 +271,10 @@ class ClippedAdam:
                 if tuple(state[key][name].shape) != tuple(p.shape):
                     raise ValueError(f"optimizer {key}[{name}] shape "
                                      f"{tuple(state[key][name].shape)} != {tuple(p.shape)}")
-            moments.append([state[key][name].to(p) for name, p in zip(self.names, self.params)])
+            # copies: the optimizer steps its moments in place, and must not
+            # step the caller's tensors (a checkpoint kept to restore again)
+            moments.append([state[key][name].to(p, copy=True)
+                            for name, p in zip(self.names, self.params)])
         self.mu, self.nu = moments
         self.count = int(state["count"])
 
@@ -300,7 +324,8 @@ class RolloutCarry:
 @dataclasses.dataclass
 class TrainState:
     """The learner and its rollout carry (the reference's PPOTrainState).
-    ``train_iteration`` updates it in place."""
+    ``train_iteration`` updates it in place. ``shard`` makes it one rank of a
+    data-parallel run (module docstring)."""
 
     actor_critic: ActorCritic
     central_value: Optional[CentralValue]
@@ -310,29 +335,44 @@ class TrainState:
     carry: RolloutCarry
     generator: torch.Generator  # on the device: action noise, resets, permutations
     epoch: int = 0
-    frame: int = 0  # env frames trained on
+    frame: int = 0  # env frames trained on, over every rank
+    shard: Optional[DataShard] = None
 
     @classmethod
     def create(cls, cfg: PPOConfig, actor_critic: ActorCritic,
                central_value: Optional[CentralValue], carry: RolloutCarry,
-               generator: torch.Generator) -> "TrainState":
+               generator: torch.Generator, shard: Optional[DataShard] = None) -> "TrainState":
         ac_opt, cv_opt = make_optimizers(cfg, actor_critic, central_value)
         lr = torch.tensor(cfg.learning_rate, dtype=torch.float32, device=carry.obs.device)
-        return cls(actor_critic, central_value, ac_opt, cv_opt, lr, carry, generator)
+        return cls(actor_critic, central_value, ac_opt, cv_opt, lr, carry, generator,
+                   shard=shard)
+
+    def learner_tensors(self) -> List[torch.Tensor]:
+        """The parameters of both networks and ``lr``: what every rank holds
+        alike."""
+        nets = [self.actor_critic] + ([self.central_value] if self.central_value is not None
+                                      else [])
+        return [p.data for net in nets for p in net.parameters()] + [self.lr]
 
 
 def init_train_state(cfg: PPOConfig, static: EnvStatic, params: EnvParams,
-                     seed: int) -> TrainState:
+                     seed: int, shard: Optional[DataShard] = None) -> TrainState:
     """Reset every env, random networks and fresh optimizers, from ``seed``,
-    on the device and in the dtype of ``params``."""
+    on the device and in the dtype of ``params``. Under a ``shard`` the
+    reset draws are the global blocks' rows of the shard, and rank 0's
+    learner is broadcast to every rank."""
     like = params.dof_default_pos
     generator = torch.Generator(device=like.device).manual_seed(seed)
-    env_state, obs = env_reset(static, params, *draw_init_randoms(
-        static, generator, static.num_envs, like.device, like.dtype))
+    n_draw = shard.n_global if shard is not None else static.num_envs
+    env_state, obs = env_reset(static, params, *shard_batch(draw_init_randoms(
+        static, generator, n_draw, like.device, like.dtype), shard))
     carry = RolloutCarry.start(env_state, obs, static.state_dim, cfg)
     actor_critic, central_value = make_networks(
         cfg, static, like.device, torch.Generator().manual_seed(seed))
-    return TrainState.create(cfg, actor_critic, central_value, carry, generator)
+    ts = TrainState.create(cfg, actor_critic, central_value, carry, generator, shard)
+    if shard is not None:
+        broadcast_(ts.learner_tensors(), shard)
+    return ts
 
 
 @dataclasses.dataclass
@@ -371,11 +411,15 @@ def rollout(cfg: PPOConfig, static: EnvStatic, env_params: EnvParams,
             carry: RolloutCarry, actor_critic, central_value=None,
             generator: Optional[torch.Generator] = None,
             noise: Optional[torch.Tensor] = None,
-            env_draws: Optional[Sequence] = None) -> Tuple[RolloutCarry, Trajectory]:
+            env_draws: Optional[Sequence] = None,
+            shard: Optional[DataShard] = None) -> Tuple[RolloutCarry, Trajectory]:
     """``cfg.horizon`` steps of policy + env. Action noise is ``noise[t]``
     when given (horizon, N, A), else drawn from ``generator``; env reset
-    draws are ``env_draws[t]`` when given, else drawn from ``generator``."""
+    draws are ``env_draws[t]`` when given, else drawn from ``generator``.
+    Under a ``shard`` the draws, drawn or given, are the global blocks, and
+    the rank keeps its rows."""
     n = static.num_envs
+    n_draw = shard.n_global if shard is not None else n
     env_state, obs, states = carry.env_state, carry.obs, carry.states
     ep_ret, ep_len = carry.ep_return, carry.ep_len
     fin_ret = obs.new_zeros(n)
@@ -387,15 +431,16 @@ def rollout(cfg: PPOConfig, static: EnvStatic, env_params: EnvParams,
                            "value", "reward", "done")}
     for t in range(cfg.horizon):
         mu, log_std, value = policy_and_value(actor_critic, central_value, obs, states)
-        eps = (noise[t] if noise is not None
-               else torch.randn(mu.shape, generator=generator, device=mu.device))
+        eps = shard_batch(noise[t] if noise is not None else torch.randn(
+            (n_draw, mu.shape[1]), generator=generator, device=mu.device), shard)
         action = mu + torch.exp(log_std) * eps
         neglogp = gaussian_neglogp(mu, log_std, action)
         clipped = torch.clamp(action, -cfg.clip_actions, cfg.clip_actions)
         if env_draws is not None:
-            draws = env_draws[t]
+            draws = shard_batch(env_draws[t], shard)
         else:
-            draws = draw_step_randoms(static, generator, n, obs.device, obs.dtype)
+            draws = shard_batch(draw_step_randoms(static, generator, n_draw, obs.device,
+                                                  obs.dtype), shard)
         env_state, next_obs, next_states, reward, done, info = env_step(
             static, env_params, env_state, clipped, draws
         )
@@ -544,15 +589,22 @@ def adapt_lr(cfg: PPOConfig, lr: torch.Tensor, kl: torch.Tensor) -> torch.Tensor
 
 
 def actor_critic_step(cfg: PPOConfig, actor_critic: ActorCritic, opt: ClippedAdam,
-                      lr: torch.Tensor, mb: Dict[str, torch.Tensor]):
+                      lr: torch.Tensor, mb: Dict[str, torch.Tensor],
+                      shard: Optional[DataShard] = None):
     """One minibatch step: loss, gradients, clip + Adam at ``lr``, then the
     adaptive learning rate from this step's KL. Returns (new lr, (total,
     a_loss, c_loss, entropy, kl)), all device tensors; with ``nan_telemetry``
-    the terms end with the gradients' global norm before the clip."""
+    the terms end with the gradients' global norm before the clip. Under a
+    ``shard`` the gradients and the KL are averaged over the ranks in one
+    all-reduce before the clip, so that the clip sees the global norm and
+    every rank takes the same step and lr."""
     mu, log_std, value = actor_critic(mb["obs"])
     total, (a_loss, c_loss, entropy, _, kl) = ac_loss_terms(cfg, mb, mu, log_std, value)
-    g_norm = opt.step(torch.autograd.grad(total, opt.params), lr, want_norm=cfg.nan_telemetry)
+    grads = torch.autograd.grad(total, opt.params)
     kl = kl.detach()
+    if shard is not None:
+        all_reduce_mean_(list(grads) + [kl], shard)
+    g_norm = opt.step(grads, lr, want_norm=cfg.nan_telemetry)
     if cfg.lr_schedule == "adaptive":
         lr = adapt_lr(cfg, lr, kl)
     terms = tuple(x.detach() for x in (total, a_loss, c_loss, entropy)) + (kl,)
@@ -560,11 +612,16 @@ def actor_critic_step(cfg: PPOConfig, actor_critic: ActorCritic, opt: ClippedAda
 
 
 def central_value_step(cfg: PPOConfig, central_value: CentralValue, opt: ClippedAdam,
-                       states: torch.Tensor, returns: torch.Tensor) -> torch.Tensor:
+                       states: torch.Tensor, returns: torch.Tensor,
+                       shard: Optional[DataShard] = None) -> torch.Tensor:
     """One central-value step: MSE on the returns, clip + Adam at the
-    constant ``cv_learning_rate``. Returns the loss."""
+    constant ``cv_learning_rate``, the gradients averaged over the ranks
+    first under a ``shard``. Returns the loss."""
     loss = torch.mean(torch.square(central_value(states) - returns))
-    opt.step(torch.autograd.grad(loss, opt.params), cfg.cv_learning_rate)
+    grads = torch.autograd.grad(loss, opt.params)
+    if shard is not None:
+        all_reduce_mean_(grads, shard)
+    opt.step(grads, cfg.cv_learning_rate)
     return loss.detach()
 
 
@@ -584,53 +641,88 @@ def train_iteration(cfg: PPOConfig, static: EnvStatic, env_params: EnvParams,
     included). ``noise``, ``env_draws`` and ``perms`` (``draw_permutations``'
     layout) replace the generator's draws when given; ``on_phase`` is called
     with "rollout", "gae" and "update" as each phase has been enqueued."""
-    n, h = static.num_envs, cfg.horizon
     ac, cv = ts.actor_critic, ts.central_value
-    asym = cv is not None
-
-    ts.carry, traj = rollout(cfg, static, env_params, ts.carry, ac, cv,
-                             generator=ts.generator, noise=noise, env_draws=env_draws)
+    ts.carry, traj = rollout(cfg, static, env_params, ts.carry, ac, cv, generator=ts.generator,
+                             noise=noise, env_draws=env_draws, shard=ts.shard)
     with torch.no_grad():
         _, _, last_value = policy_and_value(ac, cv, ts.carry.obs, ts.carry.states)
     if on_phase is not None:
         on_phase("rollout")
+    return update(cfg, ts, traj, last_value, perms=perms, on_phase=on_phase)
+
+
+def _flat_batch(tensors: Dict[str, torch.Tensor],
+                shard: Optional[DataShard]) -> Dict[str, torch.Tensor]:
+    """Time-major (h, n, ...) tensors as the flat (h * N, ...) batch of the
+    rl_games shuffle; under a ``shard`` the global batch, every tensor
+    all-gathered in one collective (the reference's partitioner gathers the
+    trajectory for this layout too, ppo.py:423-428)."""
+    if shard is not None:
+        h, n = next(iter(tensors.values())).shape[:2]
+        widths = [v[0, 0].numel() for v in tensors.values()]
+        packed = all_gather_envs(torch.cat([v.reshape(h, n, -1) for v in tensors.values()], -1),
+                                 shard)
+        tensors = {k: x.reshape((h, shard.n_global) + v.shape[2:])
+                   for (k, v), x in zip(tensors.items(), packed.split(widths, -1))}
+    return {k: v.reshape((-1,) + v.shape[2:]) for k, v in tensors.items()}
+
+
+def update(cfg: PPOConfig, ts: TrainState, traj: Trajectory, last_value: torch.Tensor,
+           perms: Optional[Sequence[torch.Tensor]] = None,
+           on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
+    """The learning half of ``train_iteration`` on a rollout's trajectory
+    and its last value: GAE, advantage normalisation, the actor-critic and
+    central-value minibatch steps; updates ``ts`` in place and returns the
+    epoch's metrics. Under ``ts.shard`` the trajectory is the rank's envs of
+    the global one, and the layouts follow the global N."""
+    shard = ts.shard
+    h, n = traj.value.shape
+    n_all = shard.n_global if shard is not None else n
+    ac, cv = ts.actor_critic, ts.central_value
+    asym = cv is not None
 
     advs = gae(cfg, traj.reward, traj.value, traj.done, last_value)
     returns = advs + traj.value
     if cfg.normalize_advantage:
-        advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+        mean, std = global_mean_std(advs, shard)
+        advs = (advs - mean) / (std + 1e-8)
     if on_phase is not None:
         on_phase("gae")
 
     if perms is None:
-        perms = draw_permutations(cfg, h, n, asym, ts.generator, advs.device)
-    ac_idx, cv_idx = minibatch_indices(cfg, h, n, asym, perms)
-    (_, _, ac_ts), cv_layout = _layouts(cfg, h, n, asym)
-
-    def layout(x, time_sliced):
-        return x if time_sliced else x.reshape((h * n,) + x.shape[2:])
-
-    data = {k: layout(v, ac_ts) for k, v in (
-        ("obs", traj.obs), ("action", traj.action), ("mu", traj.mu),
-        ("log_std", traj.log_std), ("neglogp", traj.neglogp), ("advs", advs),
-        ("returns", returns), ("value", traj.value))}
+        perms = draw_permutations(cfg, h, n_all, asym, ts.generator, advs.device)
+    ac_idx, cv_idx = minibatch_indices(cfg, h, n_all, asym, perms)
+    (_, _, ac_ts), cv_layout = _layouts(cfg, h, n_all, asym)
+    ac_keys = ("obs", "action", "mu", "log_std", "neglogp", "advs", "returns", "value")
+    fields = {"obs": traj.obs, "action": traj.action, "mu": traj.mu, "log_std": traj.log_std,
+              "neglogp": traj.neglogp, "advs": advs, "returns": returns, "value": traj.value,
+              "states": traj.states}
+    flat_keys = [] if ac_ts else list(ac_keys)
+    if asym and not cv_layout[2]:
+        flat_keys += ["states"] + ([] if flat_keys else ["returns"])
+    # a time-sliced minibatch takes its rows of the rank's own envs; a flat
+    # one is the same global minibatch on every rank, which computes all of
+    # it (the reference's partitioner replicates it after its all-gather)
+    flat = _flat_batch({k: fields[k] for k in flat_keys}, shard) if flat_keys else {}
+    data = {k: fields[k] if ac_ts else flat[k] for k in ac_keys}
     lr, ac_terms = ts.lr, []
     for idx in ac_idx:
         mb = {k: v.index_select(0, idx) for k, v in data.items()}
-        lr, terms = actor_critic_step(cfg, ac, ts.ac_opt, lr, mb)
+        lr, terms = actor_critic_step(cfg, ac, ts.ac_opt, lr, mb, shard)
         ac_terms.append(terms)
     ts.lr = lr
     cv_loss = advs.new_zeros(())
     if asym:
-        s, r = layout(traj.states, cv_layout[2]), layout(returns, cv_layout[2])
+        src = fields if cv_layout[2] else flat
+        s, r = src["states"], src["returns"]
         cv_loss = torch.stack([central_value_step(cfg, cv, ts.cv_opt, s.index_select(0, idx),
-                                                  r.index_select(0, idx))
+                                                  r.index_select(0, idx), shard)
                                for idx in cv_idx]).mean()
     if on_phase is not None:
         on_phase("update")
 
     ts.epoch += 1
-    ts.frame += h * n
+    ts.frame += h * n_all
     per_step = [torch.stack(x) for x in zip(*ac_terms)]
     total, a_loss, c_loss, entropy, kl = (x.mean() for x in per_step[:5])
     fin_n = traj.fin_n
@@ -656,6 +748,8 @@ def train_iteration(cfg: PPOConfig, static: EnvStatic, env_params: EnvParams,
     if cfg.nan_telemetry:
         metrics.update(nan_metrics(traj, ts, advs, returns, kl_trace=per_step[4],
                                    grad_norms=per_step[5]))
+    if shard is not None:
+        metrics = reduce_metrics(metrics, shard)
     return metrics
 
 

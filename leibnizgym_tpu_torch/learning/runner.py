@@ -20,6 +20,21 @@ state is not saved; envs reset on resume, as in the reference. ``restore``
 also takes the weights-only ``.npz`` policies of
 ``leibnizgym_tpu_torch/resources/policies/``.
 
+Data parallelism: where a process group exists (``parallel.
+initialize_distributed``, ``args.multihost``), the Runner is one rank of
+it. Its env steps ``num_instances / W`` envs (an error when W does not
+divide it), its learner is rank 0's, broadcast at reset, and the epoch's
+reductions are collectives (``learning/ppo.py``), so every rank sees the
+same metrics, curriculum level and stopping decisions. Only rank 0 writes
+the log directory, TensorBoard and checkpoints. Every rank restores a
+checkpoint, and since the learner is replicated, a checkpoint of a W-rank
+run restores in a 1-rank run and the other way round. Each rank runs its
+own watchdog; the process group's timeout bounds a collective whose peer
+has exited.
+
+``visualize=True`` opens the live viewer (``utils/viewer.py``), drawn at
+every ``play`` step.
+
 With ``nan_telemetry`` the loop runs at depth 1 and keeps the whole train
 state before each epoch (``nan_dump_payload``: the checkpoint payload, the
 rollout carry and the generator's state, cloned on the device). A halt on a
@@ -39,6 +54,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from leibnizgym_tpu_torch.utils.helpers import resolve_device as _resolve_device
@@ -52,6 +68,7 @@ from leibnizgym_tpu_torch.learning.ppo import (
     make_optimizers,
     train_iteration,
 )
+from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, data_shard, shard_batch
 
 
 def resolve_device(name) -> torch.device:
@@ -103,34 +120,51 @@ class AverageMeter:
 
 
 class Runner:
-    """Owns env + learner on one device; trains or plays."""
+    """Owns env + learner on one device, as one rank where a process group
+    exists; trains or plays."""
+
+    shard = None  # this rank's DataShard, or None alone
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0, or the only process: the one that writes."""
+        return self.shard is None or self.shard.rank == 0
+
+    @property
+    def num_envs_global(self) -> int:
+        return self.shard.n_global if self.shard is not None else self.static.num_envs
 
     def __init__(self, task_cfg: dict, agent_params: dict, logdir: str = "logs",
                  seed: int = 7, verbose: bool = False, device="TPU",
                  visualize: bool = False):
-        if visualize:
-            raise NotImplementedError(
-                "the viewer is not in the PyTorch port yet (ROADMAP.md queue 1, item 14)")
         self.verbose = verbose
         self.device = resolve_device(device)
         num_actors = int(task_cfg.get("num_instances", 256))
         self.ppo_cfg = PPOConfig.from_rlg_params(agent_params, num_actors)
-        self.env = TrifingerEnv(config=task_cfg, device=self.device, verbose=verbose)
+        if dist.is_available() and dist.is_initialized():
+            self.shard = data_shard(num_actors)
+        self.env = TrifingerEnv(config=task_cfg, device=self.device, verbose=verbose,
+                                visualize=visualize, shard=self.shard)
         self.static, self.env_params = self.env.static, self.env.params
         self.seed = seed
 
-        # log directories (reference run_rlg: nn/, runs/, timestamped)
+        # log directories (reference run_rlg: nn/, runs/, timestamped), rank 0's
         stamp = datetime.now().strftime("%m-%d-%Y-%H-%M-%S")
         self.logdir = os.path.join(logdir, stamp)
         self.nn_dir = os.path.join(self.logdir, "nn")
-        os.makedirs(self.nn_dir, exist_ok=True)
-        with open(os.path.join(self.logdir, "agent_config.yaml"), "w") as f:
-            yaml.dump(agent_params, f)
-        self.env.dump_config(os.path.join(self.logdir, "env_config.yaml"))
-        writer_cls = _summary_writer_cls()
-        self.writer = (writer_cls(os.path.join(self.logdir, "summaries"))
-                       if writer_cls is not None else None)
-        print_notify(f"Saving logs at: {self.logdir}")
+        self.writer = None
+        if self.is_main:
+            os.makedirs(self.nn_dir, exist_ok=True)
+            with open(os.path.join(self.logdir, "agent_config.yaml"), "w") as f:
+                yaml.dump(agent_params, f)
+            self.env.dump_config(os.path.join(self.logdir, "env_config.yaml"))
+            writer_cls = _summary_writer_cls()
+            if writer_cls is not None:
+                self.writer = writer_cls(os.path.join(self.logdir, "summaries"))
+            print_notify(f"Saving logs at: {self.logdir}")
+        if self.shard is not None and self.is_main:
+            print_info(f"Runner: {num_actors} envs over {self.shard.world} ranks "
+                       f"({dist.get_backend()}), {self.shard.n_local} on each")
 
         self._train_iter = train_iteration
         self.game_rewards = AverageMeter(self.ppo_cfg.games_to_track)
@@ -162,7 +196,8 @@ class Runner:
     # ------------------------------------------------------------------ setup
 
     def reset(self):
-        self.ts = init_train_state(self.ppo_cfg, self.static, self.env_params, self.seed)
+        self.ts = init_train_state(self.ppo_cfg, self.static, self.env_params, self.seed,
+                                   shard=self.shard)
 
     # ----------------------------------------------------------- checkpointing
 
@@ -212,10 +247,13 @@ class Runner:
         payload["generator_device"] = str(ts.generator.device)
         return payload
 
-    def save(self, name: str, payload: Optional[dict] = None) -> str:
+    def save(self, name: str, payload: Optional[dict] = None) -> Optional[str]:
         """Write ``payload`` (default: the current learner state) to
         ``nn/<name>``; the train loop passes the snapshot of the epoch whose
-        metrics triggered the save."""
+        metrics triggered the save. Returns the path; None on a rank other
+        than 0, which writes nothing."""
+        if not self.is_main:
+            return None
         path = os.path.abspath(os.path.join(self.nn_dir, name))
         payload = payload if payload is not None else self._ckpt_payload()
         torch.save(_to_cpu(payload), path)
@@ -324,14 +362,14 @@ class Runner:
                 self.game_rewards.update(fin_rets[fin_n > 0])
             if self._cur_gated:
                 self._curriculum_update(metrics, frame, snapshot)
-            fps = cfg.horizon * self.static.num_envs / dt
+            fps = cfg.horizon * self.num_envs_global / dt
             if self.writer is not None:
                 for k, v in metrics.items():
                     self.writer.add_scalar(k, float(v), frame)
                 self.writer.add_scalar("performance/fps", fps, frame)
                 if self.game_rewards.current_size > 0:
                     self.writer.add_scalar("rewards0/frame", self.game_rewards.get_mean(), frame)
-            if self.verbose or epoch % 10 == 0:
+            if self.is_main and (self.verbose or epoch % 10 == 0):
                 print_info(
                     f"epoch {epoch}/{epochs} frames {frame} fps {fps:,.0f} "
                     f"ep_rew {self.game_rewards.get_mean():.1f} "
@@ -354,7 +392,7 @@ class Runner:
                 print_error(f"non-finite kl at epoch {epoch}; halting. " + " ".join(
                     f"{k}={float(v):.3g}" for k, v in sorted(metrics.items())
                     if k.startswith("nan/")))
-                if prev_state is not None:
+                if prev_state is not None and self.is_main:
                     path = os.path.join(self.logdir, "nan_prev_ts.pt")
                     torch.save(_to_cpu(prev_state), path)
                     print_error(f"pre-nan train state dumped to {path}")
@@ -448,16 +486,17 @@ class Runner:
             lvl = 1.0 if curriculum_level is None else float(curriculum_level)
             self.env.params = self.env.params.with_curriculum_level(lvl)
             print_info(f"play: curriculum level {lvl:.2f}")
-        cfg = self.ppo_cfg
+        cfg, shard = self.ppo_cfg, self.shard
         actor_critic = self.ts.actor_critic
+        n_draw = self.num_envs_global
 
         @torch.no_grad()
         def policy(obs, generator: Optional[torch.Generator] = None):
             mu, log_std, _ = actor_critic(torch.clamp(obs, -cfg.clip_obs, cfg.clip_obs))
             action = mu
-            if not deterministic:
-                action = mu + torch.exp(log_std) * torch.randn(
-                    mu.shape, generator=generator, device=mu.device)
+            if not deterministic:  # the global block's rows under a shard
+                action = mu + torch.exp(log_std) * shard_batch(torch.randn(
+                    (n_draw, mu.shape[1]), generator=generator, device=mu.device), shard)
             return torch.clamp(action, -cfg.clip_actions, cfg.clip_actions)
 
         return policy
@@ -485,7 +524,12 @@ class Runner:
         for _ in range(num_steps):
             obs, reward, _, _ = env.step(policy(obs, generator))
             total_reward += reward
-        mean_r = float(total_reward.mean())
+            if self.env.visualize:  # live viewer (reference render-per-step)
+                self.env.render()
+        mean_r = total_reward.mean()
+        if self.shard is not None:
+            all_reduce_mean_([mean_r], self.shard)
+        mean_r = float(mean_r)
         print_info(f"play: {num_steps} steps, mean accumulated reward {mean_r:.1f}")
         return mean_r
 

@@ -49,3 +49,24 @@ def run_training(task_cfg: dict, agent_cfg: dict, logdir: str = "logs", seed: in
     if train:
         return runner.train(max_epochs=max_epochs, watchdog_timeout=watchdog_timeout)
     return runner.play(num_steps=play_steps)
+
+
+def make_train_step_for_dryrun(env, frames: int = 1):
+    """(train_step, ts): one PPO epoch at tiny shapes on ``env`` (horizon 4,
+    2 + 2 mini-epochs, one minibatch of all envs a step), for the
+    multi-process dry run. Under ``env.shard`` the train state is that
+    rank's. ``train_step(ts)`` runs one epoch in place and returns its
+    metrics; ``frames`` > 1 runs the frame stack of the flagship recipe."""
+    from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state, train_iteration
+
+    n = env.static.envs_counted
+    cfg = PPOConfig(horizon=4, minibatch_size=n, mini_epochs=2, cv_minibatch_size=n,
+                    cv_mini_epochs=2, frames=frames)
+    ts = init_train_state(cfg, env.static, env.params, 0, shard=env.shard)
+
+    def train_step(ts):
+        return train_iteration(cfg, env.static, env.params, ts)
+
+    print_info(f"[dryrun] PPO train step built: {n} envs, "
+               f"{ts.shard.world if ts.shard is not None else 1} rank(s)")
+    return train_step, ts

@@ -14,14 +14,25 @@ agent setting of the reference is honoured, bfloat16 towers and
 ``nan_telemetry`` included (``learning/ppo.py``); the TPU scheduling knobs
 are read and ignored. ``args.wandb_log=True`` logs to wandb as the
 reference does, and trains without it, with a note, where wandb is not
-installed. Not in the port yet (ROADMAP.md queue 1, item 14):
-``args.multihost`` and the viewer (``args.headless=False``).
+installed. ``args.headless=False`` opens the live viewer for play.
+
+``args.multihost=True`` joins a process group before the device is touched,
+one process per GPU: with ``torchrun`` (its environment gives the
+rendezvous), or with ``args.coordinator_address`` (``host:port``, a
+``tcp://`` or ``file://`` URL), ``args.num_processes`` and
+``args.process_id``. NCCL on CUDA, gloo on the CPU; each rank takes
+``cuda:{LOCAL_RANK % device_count}`` and ``args.num_envs`` / W envs:
+
+    torchrun --nproc_per_node 2 -m leibnizgym_tpu_torch.scripts.train args.multihost=True \\
+        args.num_envs=16384
 """
 
 from __future__ import annotations
 
 import os
 import sys
+
+import torch
 
 from leibnizgym_tpu_torch.utils.message import print_dict, print_info
 from leibnizgym_tpu_torch.config.presets import parse_cli, update_cfg
@@ -31,9 +42,22 @@ from leibnizgym_tpu_torch.learning.train import run_training
 def main(argv):
     cfg = update_cfg(parse_cli(argv))
     args = cfg["args"]
+    device = args["device"]
     if args.get("multihost"):
-        raise NotImplementedError(
-            "args.multihost is not in the PyTorch port yet (ROADMAP.md queue 1, item 14)")
+        from leibnizgym_tpu_torch.learning.runner import resolve_device
+        from leibnizgym_tpu_torch.parallel.mesh import initialize_distributed, local_rank
+
+        cpu = resolve_device(device).type == "cpu"  # CUDA without a card raises here
+        initialize_distributed(
+            coordinator_address=args.get("coordinator_address"),
+            num_processes=args.get("num_processes"),
+            process_id=args.get("process_id"),
+            backend="gloo" if cpu else "nccl",
+            timeout=args.get("watchdog_timeout"),
+        )
+        if not cpu:
+            device = f"cuda:{local_rank() % torch.cuda.device_count()}"
+            torch.cuda.set_device(device)
     if args["wandb_log"]:
         try:
             import wandb
@@ -62,7 +86,7 @@ def main(argv):
         verbose=args["verbose"],
         watchdog_timeout=args.get("watchdog_timeout"),
         visualize=not args.get("headless", True),
-        device=args["device"],
+        device=device,
     )
 
 

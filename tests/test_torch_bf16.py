@@ -108,8 +108,8 @@ def test_bf16_update_matches_reference(case, monkeypatch):
     steps = []
     step = tppo.actor_critic_step
 
-    def recording_step(cfg, ac, opt, lr, mb):
-        new_lr, terms = step(cfg, ac, opt, lr, mb)
+    def recording_step(cfg, ac, opt, lr, mb, shard=None):
+        new_lr, terms = step(cfg, ac, opt, lr, mb, shard)
         steps.append(float(terms[4]))
         return new_lr, terms
 

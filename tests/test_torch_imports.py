@@ -12,7 +12,8 @@ robot-variant path and the tool scripts among them) and ``chip_smoke.py``,
 steps a 2-env ``TrifingerEnv`` on D1 and on the D4 + DR preset, reads a
 shipped ``.npz`` policy, runs the legacy CLI's config loading, a URDF
 robot's chain step, a benchmark point, the asset export and a trajectory
-dump, and trains a 2-env ``Runner`` for one epoch.
+dump, runs ``graft_entry.entry``'s env step, takes a viewer frame, and
+trains a 2-env ``Runner`` for one epoch.
 """
 
 import os
@@ -67,7 +68,10 @@ for name in ("learning.ppo", "learning.runner", "learning.train", "scripts.train
              "config.config_utils", "utils.errors", "utils.mdp", "models.urdf",
              "models.chain", "ops.kinematics", "ops.dynamics", "ops.generic_chain",
              "scripts.benchmark", "scripts.asset_tools", "scripts.export_assets",
-             "scripts.trifinger_random_action", "scripts.trajectory_parity"):
+             "scripts.trifinger_random_action", "scripts.trajectory_parity",
+             "parallel.mesh", "parallel.launch", "parallel.dryrun", "graft_entry",
+             "utils.viewer", "scripts.replay_viewer", "scripts.multihost_demo",
+             "scripts.scaling_bench"):
     assert "leibnizgym_tpu_torch." + name in names, name
 
 # the robot-variant path, the legacy CLI and the tools run without JAX
@@ -89,6 +93,13 @@ with tempfile.TemporaryDirectory() as tmp:
     assert export_assets.main(["--out", tmp]) == 0
     assert trajectory_parity.main(["dump", "--device", "cpu", "--num-envs", "2", "--steps",
                                    "1", "--out", tmp + "/t.npz"]) == 0
+
+# the graft entry's env step and a viewer frame run without JAX
+from leibnizgym_tpu_torch.graft_entry import entry
+from leibnizgym_tpu_torch.utils.viewer import extract_frame
+fn, example = entry("cpu")
+assert tuple(fn(*example)[0].shape) == (128, 41)
+assert extract_frame(example[0], 5)["tips"].shape == (3, 3)
 
 # the D4 flagship preset (DR, keypoints, curriculum) steps, and a shipped
 # policy restores from its npz

@@ -139,6 +139,23 @@ def test_clipped_adam_matches_optax(grad_scale, truncate):
             np.testing.assert_allclose(ours.numpy(), r, rtol=2e-6, atol=1e-6 * np.abs(r).max())
 
 
+def test_clipped_adam_load_state_dict_copies_the_moments():
+    """Stepping after ``load_state_dict`` leaves the loaded state as it was
+    (a checkpoint restored twice gives the same learner twice)."""
+    params = [("w", torch.ones(3, 2)), ("b", torch.zeros(2))]
+    adam = tppo.ClippedAdam(params, 1.0)
+    adam.step([torch.full((3, 2), 0.5), torch.full((2,), -0.5)], torch.tensor(3e-4))
+    saved = adam.state_dict()
+    kept = {k: {n: t.clone() for n, t in saved[k].items()} for k in ("mu", "nu")}
+    restored = tppo.ClippedAdam([(n, p.clone()) for n, p in params], 1.0)
+    restored.load_state_dict(saved)
+    restored.step([torch.full((3, 2), 2.0), torch.full((2,), 1.0)], torch.tensor(3e-4))
+    for k in ("mu", "nu"):
+        for n, t in kept[k].items():
+            assert torch.equal(saved[k][n], t), (k, n)
+    assert not torch.equal(restored.mu[0], kept["mu"]["w"])
+
+
 @pytest.mark.parametrize("h, n, mb, shuffle, expect", [
     (32, 8192, 8192, True, (32, 1, True)),  # D1 at 8192 envs: one row per minibatch
     (8, 64, 128, True, (4, 2, True)),
@@ -336,8 +353,8 @@ def test_update_matches_reference(case, monkeypatch):
     steps = []
     step = tppo.actor_critic_step
 
-    def recording_step(cfg, ac, opt, lr, mb):
-        new_lr, terms = step(cfg, ac, opt, lr, mb)
+    def recording_step(cfg, ac, opt, lr, mb, shard=None):
+        new_lr, terms = step(cfg, ac, opt, lr, mb, shard)
         steps.append((float(terms[-1]), float(new_lr)))
         return new_lr, terms
 

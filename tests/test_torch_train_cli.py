@@ -59,8 +59,18 @@ def test_cuda_without_a_card_is_an_error(device, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("key", ["multihost"])
-def test_cli_refuses_unported_args(key):
-    with pytest.raises(NotImplementedError, match="item 14"):
+def test_cli_refuses_unported_args(key, monkeypatch):
+    """No argument of the reference is refused as unported any more:
+    ``args.multihost`` joins a process group (tests/test_torch_parallel_cli.py
+    trains through it). What it still refuses, before any device or network
+    use, is a rendezvous it cannot make: a coordinator address without the
+    world size and rank, or no coordinator outside ``torchrun``."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="num_processes and process_id"):
+        tcli.main([f"args.{key}=True", "args.device=cpu",
+                   "args.coordinator_address=localhost:29500"])
+    with pytest.raises(ValueError, match="RANK"):
         tcli.main([f"args.{key}=True", "args.device=cpu"])
 
 
