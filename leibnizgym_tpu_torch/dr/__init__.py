@@ -79,6 +79,15 @@ def sample_scene_params_from_uniform(u: torch.Tensor, base: SceneParams,
     })
 
 
+def sample_scene_params(generator: torch.Generator, n: int, base: SceneParams,
+                        ranges: dict | None = None) -> SceneParams:
+    """``n`` randomized SceneParams around ``base`` (unbatched), drawn from
+    ``generator`` (``draw_uniforms``' scene block) on ``base``'s device."""
+    like = base.cube_mass
+    u, _ = draw_uniforms(generator, n, like.device, like.dtype)
+    return sample_scene_params_from_uniform(u, base, ranges)
+
+
 def sample_pd_scale_from_uniform(u: torch.Tensor, pd_gain_scale) -> torch.Tensor:
     """Per-env (kp, kd) scales (n, 2) from the PD-gain block ``u`` (n, 2)."""
     return _lerp(u, *pd_gain_scale)

@@ -88,9 +88,10 @@ TRIFINGER_DEFAULT_CONFIG_DICT = {
     # logical_and of reset & goal_reset — see SURVEY.md §3.2 warning);
     # "or" is the arguably-intended fix.
     "dones_mode": "and",
-    # engine selection of the reference package; the port picks its physics
-    # step from the env's device (CUDA kernel on a CUDA device, the plain
-    # PyTorch version on the CPU) and does not read this key
+    # physics engine: "pallas" (the CUDA kernel; its plain version on CPU
+    # tensors), "soa" (the plain version on any device) or "reference" (the
+    # batch-first reference engine, ops/engine.py); None = "pallas" on a CUDA
+    # device, "soa" on the CPU
     "engine": None,
     # optional cube-corner keypoint observations (8 object + 8 goal corners)
     "use_keypoint_obs": False,

@@ -8,8 +8,12 @@ batched over the env axis on one torch device. All randomness is "draw,
 then a pure function of the draws": the stateful ``TrifingerEnv`` draws each
 step's blocks (``draw_step_randoms``: full reset, goal reset, domain
 randomization, observation noise) from its ``torch.Generator``, and tests
-inject the reference's draws. The physics step is the CUDA kernel on a CUDA
-device and its plain PyTorch version on the CPU (``ops/cuda_engine.py``).
+inject the reference's draws. The physics step is the config's ``engine``
+(``EnvStatic.engine``): ``"pallas"``, the default on a CUDA device, is the
+CUDA kernel (its plain PyTorch version on CPU tensors, the counterpart of
+Pallas interpret mode); ``"soa"``, the default on the CPU, is that plain
+version on any device; ``"reference"`` is the batch-first reference engine
+(``ops/engine.py``).
 
 Reference quirks kept: zero action on an env's reset step; dones = reset AND
 goal_reset under ``dones_mode: "and"``; with success termination off,
@@ -48,6 +52,7 @@ from leibnizgym_tpu_torch.envs.trifinger.rewards import (
     quat_diff_rad_c,
     quat_rotate_c,
 )
+from leibnizgym_tpu_torch.ops import engine as reference_engine
 from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda, physics_step_plain
 from leibnizgym_tpu_torch.ops.engine_v2 import fingertip_components_v2
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
@@ -102,6 +107,7 @@ class EnvStatic:
     dr_activate: bool
     dr_ranges: Tuple[Tuple[str, float, float], ...]  # (name, lo, hi), configured
     dr_pd_gain_scale: Tuple[float, float]
+    engine: str  # "pallas" (the CUDA kernel) | "soa" (its plain version) | "reference"
     use_keypoint_obs: bool  # append 8 object + 8 goal cube corners to the obs
     obs_noise_std: float  # in normalized obs units, policy obs only; 0: off
     reward_specs: Tuple[RewardTermSpec, ...]
@@ -222,7 +228,24 @@ def env_state_from_tensors(tensors: Dict[str, torch.Tensor], frames: int) -> Env
 # ---------------------------------------------------------------------------
 
 
-def build_static(config: dict) -> EnvStatic:
+ENGINES = ("soa", "pallas", "reference")
+
+
+def resolve_engine(engine, device="cuda:0") -> str:
+    """The config's ``engine``: None means ``"pallas"`` (the kernel) on a CUDA
+    device and ``"soa"`` (its plain version) elsewhere, as the reference
+    picks Pallas on the TPU only; any value outside ENGINES is an error."""
+    if engine is None:
+        engine = "pallas" if torch.device(device).type == "cuda" else "soa"
+    engine = str(engine)
+    if engine not in ENGINES:
+        raise ValueError(f"Invalid engine: {engine!r} not in {list(ENGINES)}.")
+    return engine
+
+
+def build_static(config: dict, device="cuda:0") -> EnvStatic:
+    """The static description of ``config``; ``device`` resolves the
+    default ``engine``."""
     rs = config["reset_distribution"]
     term = config["termination_conditions"]["success"]
     sim = config["sim"]
@@ -289,6 +312,7 @@ def build_static(config: dict) -> EnvStatic:
         dr_ranges=tuple((k, float(dr_cfg[k][0]), float(dr_cfg[k][1]))
                         for k in dr.DR_DEFAULTS if k in dr_cfg),
         dr_pd_gain_scale=tuple(float(x) for x in dr_cfg.get("pd_gain_scale", (1.0, 1.0))),
+        engine=resolve_engine(config.get("engine"), device),
         use_keypoint_obs=bool(config.get("use_keypoint_obs", False)),
         obs_noise_std=float(config.get("obs_noise_std", 0.0)),
         reward_specs=tuple(specs[name] for name in sorted(specs)),
@@ -628,9 +652,9 @@ def compute_torque(static: EnvStatic, params: EnvParams, action_buf: torch.Tenso
 
 def _simulate(static: EnvStatic, physics: PhysicsState, tau: torch.Tensor,
               scene: SceneParams, n_calls: int):
-    """``n_calls`` physics steps: the CUDA kernel on a CUDA device, the plain
-    version on the CPU."""
-    step = physics_step_cuda if physics.q.is_cuda else physics_step_plain
+    """``n_calls`` physics steps of ``static.engine``."""
+    step = {"pallas": physics_step_cuda, "soa": physics_step_plain,
+            "reference": reference_engine.physics_step}[static.engine]
     wrench = torch.zeros((tau.shape[0], 3, 6), device=tau.device, dtype=tau.dtype)
     for _ in range(n_calls):
         physics, wrench = step(physics, tau, scene, static.solver, static.dt)
@@ -1052,7 +1076,7 @@ class TrifingerEnv(EnvBase):
             float(object_size) if np.isscalar(object_size)
             else tuple(float(s) for s in object_size)
         )
-        self.static = build_static(merged)
+        self.static = build_static(merged, device)
         self.shard = shard
         if shard is not None:
             if shard.n_global != self.static.num_envs:

@@ -1,7 +1,10 @@
-"""Reward terms for the TriFinger task, component form (counterpart of the
-spec and component API of ``leibnizgym_tpu/envs/trifinger/rewards.py``).
+"""Reward terms for the TriFinger task (counterpart of
+``leibnizgym_tpu/envs/trifinger/rewards.py``).
 
-Each term is a pure function of (N,) component columns plus a frozen spec
+Two forms of the same terms: ``compute_rewards_c`` (what the env calls)
+takes (N,) component columns; the term functions and ``compute_rewards``
+take stacked states, object (..., 13), fingertips (..., 3, 13), goal
+(..., 7). Each term is a pure function of those plus a frozen spec
 (weight, activation, schedule). Schedules: ``object_dist``, ``object_rot``
 and ``finger_reach_object_rate`` use a window indicator over
 [sched_start, sched_end]; ``object_rot_delta`` a linear ramp.
@@ -12,7 +15,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
+import numpy as np
 import torch
+
+from leibnizgym_tpu_torch.utils.math import quat_diff_rad, quat_rotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +99,119 @@ def _linear_sched(spec: RewardTermSpec, step: torch.Tensor):
         return torch.ones_like(step)
     val = (step - spec.sched_start) / (spec.sched_end - spec.sched_start)
     return torch.clamp(val, 0.0, 1.0)
+
+
+def object_dist(spec: RewardTermSpec, dt: float, step: torch.Tensor,
+                object_state: torch.Tensor, goal_pose: torch.Tensor) -> torch.Tensor:
+    """Logistic-kernel reward of the object-to-goal distance."""
+    sched = _window_sched(spec, step)
+    dist = torch.linalg.vector_norm(object_state[..., 0:3] - goal_pose[..., 0:3], dim=-1)
+    return spec.weight * dt * sched * lgsk_kernel(dist)
+
+
+def object_move(spec: RewardTermSpec, object_state: torch.Tensor,
+                last_object_state: torch.Tensor, goal_pose: torch.Tensor) -> torch.Tensor:
+    """Change of the object-to-goal distance between steps."""
+    curr = torch.linalg.vector_norm(object_state[..., 0:3] - goal_pose[..., 0:3], dim=-1)
+    prev = torch.linalg.vector_norm(last_object_state[..., 0:3] - goal_pose[..., 0:3], dim=-1)
+    return spec.weight * (curr - prev)
+
+
+def object_rot(spec: RewardTermSpec, dt: float, step: torch.Tensor,
+               object_state: torch.Tensor, goal_pose: torch.Tensor) -> torch.Tensor:
+    """Inverse-angle orientation reward."""
+    sched = _window_sched(spec, step)
+    angles = quat_diff_rad(object_state[..., 3:7], goal_pose[..., 3:7])
+    return spec.weight * (sched * dt / (spec.scale * torch.abs(angles) + spec.scale))
+
+
+def object_rot_delta(spec: RewardTermSpec, dt: float, step: torch.Tensor,
+                     object_state: torch.Tensor, last_object_state: torch.Tensor,
+                     goal_pose: torch.Tensor) -> torch.Tensor:
+    """Change of the orientation error between steps, linearly scheduled."""
+    sched = _linear_sched(spec, step)
+    last = torch.abs(quat_diff_rad(last_object_state[..., 3:7], goal_pose[..., 3:7]))
+    angles = torch.abs(quat_diff_rad(object_state[..., 3:7], goal_pose[..., 3:7]))
+    return spec.weight * sched * (angles - last)
+
+
+def finger_reach_object_rate(spec: RewardTermSpec, step: torch.Tensor,
+                             fingertip_state: torch.Tensor,
+                             last_fingertip_state: torch.Tensor, object_state: torch.Tensor,
+                             last_object_state: torch.Tensor) -> torch.Tensor:
+    """Change of each finger's distance to the object centroid, summed."""
+    curr = torch.linalg.vector_norm(
+        fingertip_state[..., :, 0:3] - object_state[..., None, 0:3], ord=spec.norm_p, dim=-1)
+    prev = torch.linalg.vector_norm(
+        last_fingertip_state[..., :, 0:3] - last_object_state[..., None, 0:3],
+        ord=spec.norm_p, dim=-1)
+    return spec.weight * _window_sched(spec, step) * torch.sum(curr - prev, dim=-1)
+
+
+def finger_move_penalty(spec: RewardTermSpec, dt: float, fingertip_state: torch.Tensor,
+                        last_fingertip_state: torch.Tensor) -> torch.Tensor:
+    """Squared fingertip velocity penalty."""
+    vel = (fingertip_state[..., :, 0:3] - last_fingertip_state[..., :, 0:3]) / dt
+    sq = torch.square(vel)
+    return spec.weight * torch.sum(sq.reshape(sq.shape[:-2] + (9,)), dim=-1)
+
+
+_KP_SIGNS = np.array(
+    [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)]
+)
+
+
+def keypoint_dist(spec: RewardTermSpec, dt: float, step: torch.Tensor,
+                  object_state: torch.Tensor, goal_pose: torch.Tensor,
+                  half_extents: torch.Tensor) -> torch.Tensor:
+    """Mean logistic-kernel reward over the 8 object / goal corner-pair
+    distances (kernel sharpness ``spec.scale``, 30 when left at 1)."""
+    sched = _window_sched(spec, step)
+    signs = torch.as_tensor(_KP_SIGNS, dtype=half_extents.dtype, device=half_extents.device)
+    corners_local = signs * half_extents[..., None, :]
+    obj_c = object_state[..., None, 0:3] + quat_rotate(object_state[..., None, 3:7],
+                                                       corners_local)
+    goal_c = goal_pose[..., None, 0:3] + quat_rotate(goal_pose[..., None, 3:7], corners_local)
+    dists = torch.linalg.vector_norm(obj_c - goal_c, dim=-1)  # (..., 8)
+    kernel_scale = spec.scale if spec.scale != 1.0 else 30.0
+    return spec.weight * dt * sched * torch.mean(lgsk_kernel(dists, scale=kernel_scale), dim=-1)
+
+
+def compute_rewards(specs: Dict[str, RewardTermSpec], dt: float,
+                    env_steps_count: torch.Tensor, fingertip_state: torch.Tensor,
+                    last_fingertip_state: torch.Tensor, object_state: torch.Tensor,
+                    last_object_state: torch.Tensor, goal_pose: torch.Tensor,
+                    half_extents: torch.Tensor | None = None):
+    """Total reward and the active terms' values, stacked form: every term is
+    evaluated, the active ones are summed in the reference's order."""
+    step = env_steps_count.to(torch.float32)
+    values = {
+        "finger_reach_object_rate": finger_reach_object_rate(
+            specs["finger_reach_object_rate"], step, fingertip_state, last_fingertip_state,
+            object_state, last_object_state),
+        "finger_move_penalty": finger_move_penalty(
+            specs["finger_move_penalty"], dt, fingertip_state, last_fingertip_state),
+        "object_dist": object_dist(specs["object_dist"], dt, step, object_state, goal_pose),
+        "object_rot": object_rot(specs["object_rot"], dt, step, object_state, goal_pose),
+        "object_rot_delta": object_rot_delta(specs["object_rot_delta"], dt, step,
+                                             object_state, last_object_state, goal_pose),
+        "object_move": object_move(specs["object_move"], object_state, last_object_state,
+                                   goal_pose),
+    }
+    if specs["keypoint_dist"].activate:
+        if half_extents is None:
+            raise ValueError("keypoint_dist reward requires half_extents")
+        values["keypoint_dist"] = keypoint_dist(specs["keypoint_dist"], dt, step,
+                                                object_state, goal_pose, half_extents)
+    else:
+        values["keypoint_dist"] = torch.zeros_like(values["object_dist"])
+    total = torch.zeros_like(values["object_dist"])
+    active_values = {}
+    for name in REWARD_TERM_NAMES:
+        if specs[name].activate:
+            total = total + values[name]
+            active_values[name] = values[name]
+    return total, active_values
 
 
 def _qmul_c(a, b):

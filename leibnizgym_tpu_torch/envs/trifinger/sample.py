@@ -1,10 +1,11 @@
-"""Pose and goal samplers driven by pre-drawn random numbers (counterpart of
-the ``*_from_uniform`` / ``*_from_normal`` samplers of
+"""Pose and goal samplers (counterpart of
 ``leibnizgym_tpu/envs/trifinger/sample.py``).
 
-Every sampler is a pure function of the uniform or normal columns it is
-given, so a test can feed the reference's draws and compare exactly; the env
-draws those columns from its ``torch.Generator``.
+The ``*_from_uniform`` / ``*_from_normal`` samplers are pure functions of
+the uniform or normal columns they are given, so a test can feed the
+reference's draws and compare exactly; the env draws those columns from its
+``torch.Generator``. The samplers that take a generator (the reference's
+take a key) draw their columns from it, then call those.
 """
 
 from __future__ import annotations
@@ -77,3 +78,38 @@ def scale_orientation_swing(quat: torch.Tensor, frac) -> torch.Tensor:
     out = torch.stack([nsx * tw + nsy * tz, nsy * tw - nsx * tz,
                        nsz * tw + nsw * tz, nsw * tw - nsz * tz], dim=-1)
     return out / torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+
+
+def random_xy(generator: torch.Generator, num: int, max_com_distance_to_center,
+              device=None, dtype=torch.float32):
+    """Uniform positions in a disc of the given radius (sqrt-radius trick)."""
+    u2 = torch.rand((num, 2), generator=generator, device=device, dtype=dtype)
+    return random_xy_from_uniform(u2, max_com_distance_to_center)
+
+
+def random_z(generator: torch.Generator, num: int, min_height, max_height, device=None,
+             dtype=torch.float32) -> torch.Tensor:
+    """Uniform heights in ``[min_height, max_height]``."""
+    u1 = torch.rand((num,), generator=generator, device=device, dtype=dtype)
+    return random_z_from_uniform(u1, min_height, max_height)
+
+
+def random_orientation(generator: torch.Generator, num: int, device=None,
+                       dtype=torch.float32) -> torch.Tensor:
+    """Uniformly random unit quaternions via normalized Gaussians."""
+    n4 = torch.randn((num, 4), generator=generator, device=device, dtype=dtype)
+    return random_orientation_from_normal(n4)
+
+
+def random_angular_vel(generator: torch.Generator, num: int, magnitude_stdev, device=None,
+                       dtype=torch.float32) -> torch.Tensor:
+    """A random unit axis times an N(0, stdev) magnitude."""
+    n4 = torch.randn((num, 4), generator=generator, device=device, dtype=dtype)
+    return random_angular_vel_from_normal(n4, magnitude_stdev)
+
+
+def random_yaw_orientation(generator: torch.Generator, num: int, device=None,
+                           dtype=torch.float32) -> torch.Tensor:
+    """Random rotations about the z-axis only."""
+    u1 = torch.rand((num,), generator=generator, device=device, dtype=dtype)
+    return random_yaw_orientation_from_uniform(u1)

@@ -70,9 +70,11 @@ NVCC_FLAGS = (
 # the source note)
 ENVS_PER_BLOCK = 32
 
-# NVIDIA H100 SXM, published: float32 outside the tensor cores, HBM3 rate
+# NVIDIA H100 SXM, published: float32 outside the tensor cores, HBM3 rate,
+# and dense bfloat16 on the tensor cores (bench.py's PPO matmul MFU)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
 
 launch_count = 0
 

@@ -1,10 +1,11 @@
 """Generalized-coordinate dynamics of one 3-DoF finger chain (counterpart of
-``leibnizgym_tpu/ops/dynamics.py``: ``link_jacobians``, ``mass_matrix``,
-``bias_forces``, ``forward_dynamics``).
+``leibnizgym_tpu/ops/dynamics.py``).
 
 The mass matrix is assembled from link Jacobians, the Coriolis + gravity
 bias by recursive Newton-Euler, and the 3x3 system is solved by a
-closed-form Cholesky (``utils.math.solve_pd_3x3``). The JAX functions are
+closed-form Cholesky (``utils.math.solve_pd_3x3``). The Euler-Lagrange
+bias ``bias_forces_lagrangian`` (``torch.func`` autodiff of the mass matrix
+and the potential) is the oracle the tests hold ``bias_forces`` to. The JAX functions are
 written for one finger and vmapped; these take leading batch dims on every
 argument that carries a batch (``q``, ``qd``, ``tau``, ``fk``) and
 broadcast the rest (gravity, masses, inertias, damping, armature).
@@ -71,6 +72,43 @@ def mass_matrix(q: torch.Tensor, link_masses=None, armature=None, fk: FingerFK =
     if armature is not None:
         m = m + torch.diag_embed(const(armature, m).expand(m.shape[:-1]))
     return m
+
+
+def potential_energy(q: torch.Tensor, gravity, link_masses=None) -> torch.Tensor:
+    """(...,) gravitational potential of one finger (finger-local frame;
+    gravity is yaw-invariant, so this holds for every finger)."""
+    fk = finger_fk(q)
+    masses = const(tf_model.LINK_MASSES if link_masses is None else link_masses, q)
+    return -(masses[..., :, None] * fk.link_com * const(gravity, q)[..., None, :]).sum((-2, -1))
+
+
+def bias_forces_lagrangian(q: torch.Tensor, qd: torch.Tensor, gravity, link_masses=None,
+                           armature=None) -> torch.Tensor:
+    """(..., 3) Euler-Lagrange bias by autodiff, the oracle of ``bias_forces``:
+    b = (dM/dq . qd) qd - 1/2 d(qd^T M qd)/dq + dV/dq, through
+    ``torch.func.jacfwd`` / ``torch.func.grad`` of ``mass_matrix`` and
+    ``potential_energy``. Leading batch dims of ``q`` / ``qd`` (and of the
+    optional per-env ``gravity``, ``link_masses``, ``armature``) are mapped
+    with ``torch.func.vmap``."""
+    if q.dim() > 1:
+        lead = q.shape[:-1]
+        args = [None if x is None else const(x, q).expand(lead + const(x, q).shape[-1:])
+                .reshape(-1, 3) for x in (gravity, link_masses, armature)]
+        dims = [None if x is None else 0 for x in args]
+        out = torch.func.vmap(bias_forces_lagrangian, in_dims=(0, 0, *dims))(
+            q.reshape(-1, 3), qd.reshape(-1, 3), *args)
+        return out.reshape(lead + (3,))
+
+    def mq(qq):
+        return matvec(mass_matrix(qq, link_masses, armature), qd)
+
+    dmqd = torch.func.jacfwd(mq)(q)  # (3, 3): d(M qd)_i / dq_j
+
+    def kinetic(qq):
+        return 0.5 * (qd * matvec(mass_matrix(qq, link_masses, armature), qd)).sum()
+
+    return (matvec(dmqd, qd) - torch.func.grad(kinetic)(q)
+            + torch.func.grad(lambda qq: potential_energy(qq, gravity, link_masses))(q))
 
 
 def bias_forces(q: torch.Tensor, qd: torch.Tensor, gravity, link_masses=None, armature=None,

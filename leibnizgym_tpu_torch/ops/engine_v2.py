@@ -1144,3 +1144,13 @@ def fingertip_components_v2(q_cols, qd_cols):
         quat_w = _quat_from_m3(rot_w)
         out.append((tip_w, quat_w, lin_w, ang_w))
     return tuple(out)
+
+
+def fingertip_states_v2(q9: torch.Tensor, qd9: torch.Tensor) -> torch.Tensor:
+    """Fingertip 13-dim states (N, 3, 13): position, quaternion, linear and
+    angular velocity of each tip, stacked from ``fingertip_components_v2``
+    on (N, 9) joint positions and velocities."""
+    fingers = fingertip_components_v2(tuple(q9[:, i] for i in range(9)),
+                                      tuple(qd9[:, i] for i in range(9)))
+    return torch.stack([torch.stack([*tip_w, *quat_w, *lin_w, *ang_w], dim=-1)
+                        for tip_w, quat_w, lin_w, ang_w in fingers], dim=1)

@@ -1,12 +1,11 @@
 """Batched forward kinematics of one TriFinger finger chain (counterpart of
-the part of ``leibnizgym_tpu/ops/kinematics.py`` that ``ops/dynamics.py``
-and ``ops/generic_chain.py`` use: ``FingerFK``, ``rot_x``, ``rot_y`` and
-``finger_fk``).
+``leibnizgym_tpu/ops/kinematics.py``).
 
 The three fingers are kinematically independent and identical up to a mount
 yaw, so kinematics and dynamics are computed in the finger-local frame (the
-mount frame before the yaw). Every function broadcasts over leading batch
-dims; constants follow ``q``'s device and dtype.
+mount frame before the yaw); ``MOUNT_ROTS`` / ``MOUNT_POS`` and the world
+helpers below apply the mount transform. Every function broadcasts over
+leading batch dims; constants follow ``q``'s device and dtype.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from leibnizgym_tpu_torch.models import trifinger as tf_model
 _O2 = np.asarray(tf_model.JOINT_OFFSETS[1], dtype=np.float32)
 _O3 = np.asarray(tf_model.JOINT_OFFSETS[2], dtype=np.float32)
 _TIP = np.asarray(tf_model.TIP_OFFSET, dtype=np.float32)
+_MOUNT_Z = tf_model.MOUNT_HEIGHT
 
 
 def const(x, like: torch.Tensor) -> torch.Tensor:
@@ -46,6 +46,11 @@ def rot_x(theta: torch.Tensor) -> torch.Tensor:
 def rot_y(theta: torch.Tensor) -> torch.Tensor:
     """Rotation matrix about y, shape (..., 3, 3)."""
     return _rot(theta, ("c", "z", "s", "z", "o", "z", "-s", "z", "c"))
+
+
+def rot_z(theta: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix about z, shape (..., 3, 3)."""
+    return _rot(theta, ("c", "-s", "z", "s", "c", "z", "z", "z", "o"))
 
 
 class FingerFK(NamedTuple):
@@ -102,3 +107,54 @@ def finger_fk(q: torch.Tensor, link_coms=None) -> FingerFK:
         tip_pos=tip,
         link_com=torch.stack([com1, com2, com3], dim=-2),
     )
+
+
+def tip_jacobian(fk: FingerFK) -> torch.Tensor:
+    """Linear Jacobian of the tip w.r.t. the 3 joint angles, (..., 3, 3);
+    column i is ``axis_i x (tip - joint_i)``."""
+    rel = fk.tip_pos[..., None, :] - fk.joint_pos  # (..., 3 joints, 3)
+    cols = torch.linalg.cross(fk.joint_axis, rel, dim=-1)
+    return cols.transpose(-1, -2)  # columns = joints
+
+
+def tip_velocity(fk: FingerFK, qd: torch.Tensor) -> torch.Tensor:
+    """Linear velocity of the tip; ``qd`` shape (..., 3)."""
+    return matvec(tip_jacobian(fk), qd)
+
+
+def tip_angular_velocity(fk: FingerFK, qd: torch.Tensor) -> torch.Tensor:
+    """Angular velocity of the tip link: the sum over joints of axis_j * qd_j."""
+    return (fk.joint_axis * qd[..., :, None]).sum(-2)
+
+
+# ---------------------------------------------------------------------------
+# World-frame helpers (the mount transform)
+# ---------------------------------------------------------------------------
+
+# (3, 3, 3) per-finger world rotation: trig in float64, then rounded to
+# float32 as the reference does
+MOUNT_ROTS = np.stack(
+    [
+        np.array([[np.cos(y), -np.sin(y), 0.0], [np.sin(y), np.cos(y), 0.0],
+                  [0.0, 0.0, 1.0]])
+        for y in np.asarray(tf_model.FINGER_MOUNT_YAWS, dtype=np.float64)
+    ]
+).astype(np.float32)
+MOUNT_POS = np.array([0.0, 0.0, _MOUNT_Z], dtype=np.float32)
+
+
+def finger_to_world(x_local: torch.Tensor, finger_rot: torch.Tensor) -> torch.Tensor:
+    """Finger-local points (..., 3) to world, given the mount rotation."""
+    return const(MOUNT_POS, x_local) + matvec(finger_rot, x_local)
+
+
+def all_tips_world(q9: torch.Tensor):
+    """World tip positions (..., 3, 3) and rotations (..., 3, 3, 3) of the
+    three fingers from (..., 9) joint positions (finger-major), and the
+    per-finger FK (finger axis before each field's own dims)."""
+    q_f = q9.reshape(q9.shape[:-1] + (3, 3))  # (..., finger, joint)
+    fk = finger_fk(q_f)
+    rots = const(MOUNT_ROTS, q9)
+    tip_w = const(MOUNT_POS, q9) + matvec(rots, fk.tip_pos)
+    tip_rot_w = rots @ fk.link_rot[..., 2, :, :]
+    return tip_w, tip_rot_w, fk

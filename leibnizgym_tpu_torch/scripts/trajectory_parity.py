@@ -1,22 +1,26 @@
 """Fixed-seed trajectory dump & comparison harness (counterpart of the repo's
 ``scripts/trajectory_parity.py``; same flags, npz keys and meta).
 
-    python -m leibnizgym_tpu_torch.scripts.trajectory_parity dump --out /tmp/traj_a.npz
+    python -m leibnizgym_tpu_torch.scripts.trajectory_parity dump --engine pallas \
+        --out /tmp/traj_a.npz
     python -m leibnizgym_tpu_torch.scripts.trajectory_parity dump --device cpu \\
         --num-envs 8 --steps 10 --out /tmp/traj_cpu.npz
     python -m leibnizgym_tpu_torch.scripts.trajectory_parity compare /tmp/traj_a.npz /tmp/traj_b.npz
 
 ``dump`` runs a D1 torque rollout with uniform random actions in [-1, 1] on
-the device (``cuda:0`` unless ``--device cpu``; on the card the reset and
-every step launch the physics kernel once) and writes per-step arrays of
+the device (``cuda:0`` unless ``--device cpu``; on the card under
+``--engine pallas`` the reset and every step launch the physics kernel
+once) and writes per-step arrays of
 shape (T, N, ...): q (T,N,9), qd (T,N,9), cube_pos (T,N,3), cube_quat
 (T,N,4), cube_linvel (T,N,3), cube_angvel (T,N,3), obs (T,N,obs), reward
 (T,N), action (T,N,A), and ``meta`` (a JSON string: the rollout's settings,
 the resolved arena profile, ``framework`` = ``leibnizgym_tpu_torch`` and
-``device``, the card's name or ``cpu``). ``--engine soa`` and ``pallas``
-both mean the port's physics path (the kernel on the card, its plain
-version on the CPU); ``reference``, the JAX package's batch-first oracle, is
-not ported and is refused. The port draws its reset randoms and actions
+``device``, the card's name or ``cpu``). ``--engine`` is the env's
+``engine`` key, as the reference passes it: ``pallas`` is the kernel on the
+card (its plain version on the CPU), ``soa`` (the default) the plain version
+on any device, ``reference`` the batch-first reference engine
+(``ops/engine.py``); on the card ``soa`` and ``reference`` take seconds per
+step at the default 64 envs x 100 steps. The port draws its reset randoms and actions
 from ``torch.Generator``s seeded with ``--seed`` and ``--action-seed``, so
 its stream differs from the JAX package's; ``dump(args, actions, draws)``
 takes given actions and env draws instead (how a test replays a JAX dump's
@@ -37,25 +41,21 @@ import sys
 import numpy as np
 import torch
 
-from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
+from leibnizgym_tpu_torch.envs.trifinger.env import ENGINES, TrifingerEnv
 from leibnizgym_tpu_torch.utils.helpers import device_name, resolve_device
 from leibnizgym_tpu_torch.utils.message import print_info
 
-ENGINES = ("soa", "pallas")
-REFUSAL = ("--engine %r: the JAX package's batch-first oracle is not ported; the port's "
-           "physics path is --engine soa or pallas")
 FIELDS = ("q", "qd", "cube_pos", "cube_quat", "cube_linvel", "cube_angvel", "obs",
           "reward", "action")
 
 
 def make_env(args) -> TrifingerEnv:
-    if args.engine not in ENGINES:
-        raise ValueError(REFUSAL % args.engine)
     config = {
         "num_instances": args.num_envs,
         "task_difficulty": args.difficulty,
         "command_mode": "torque",
         "seed": args.seed,
+        "engine": args.engine,
         "sim": {"substeps": args.substeps,
                 "physx": {"num_position_iterations": args.iterations,
                           "tpu_solver": args.solver}},
@@ -164,8 +164,9 @@ def parser() -> argparse.ArgumentParser:
     d.add_argument("--seed", type=int, default=0)
     d.add_argument("--action-seed", type=int, default=1)
     d.add_argument("--difficulty", type=int, default=1)
-    d.add_argument("--engine", type=str, default="soa",
-                   help="soa or pallas: both the port's physics path (reference: not ported)")
+    d.add_argument("--engine", type=str, default="soa", choices=ENGINES,
+                   help="the env's engine: pallas (the kernel), soa (its plain version) "
+                        "or reference (ops/engine.py)")
     d.add_argument("--solver", type=str, default="tgs",
                    help="tpu_solver mode recorded in the dump (tgs|pgs)")
     d.add_argument("--substeps", type=int, default=2)
@@ -188,8 +189,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.cmd == "compare":
         return compare(args)
-    if args.engine not in ENGINES:
-        ap.error(REFUSAL % args.engine)
     dump(args)
     return 0
 

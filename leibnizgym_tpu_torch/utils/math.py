@@ -70,9 +70,82 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + qw * t + torch.linalg.cross(qvec, t, dim=-1)
 
 
+def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate (..., 3) vectors ``v`` by the inverse of (..., 4) quaternions ``q``."""
+    return quat_rotate(quat_conjugate(q), v)
+
+
 def quat_normalize(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     norm = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
     return q / torch.clamp_min(norm, eps)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternions (x, y, z, w) to (..., 3, 3) rotation matrices."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+            2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+            2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
+    """First-order update of (..., 4) quaternions by world-frame angular
+    velocities (..., 3) over ``dt``: normalize(q + dt * 0.5 * [omega, 0] q)."""
+    omega_quat = torch.cat([omega, torch.zeros_like(omega[..., :1])], dim=-1)
+    dq = 0.5 * quat_mul(omega_quat, q)
+    return quat_normalize(q + dt * dq)
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices to (..., 4) quaternions (x, y, z, w), by
+    a branch-free Shepperd selection (``torch.where`` over the four
+    candidates)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    trace = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-12))
+
+    qw0 = safe_sqrt(1.0 + trace) * 0.5
+    s0 = 0.25 / qw0
+    c0 = torch.stack([(m21 - m12) * s0, (m02 - m20) * s0, (m10 - m01) * s0, qw0], -1)
+
+    qx1 = safe_sqrt(1.0 + m00 - m11 - m22) * 0.5
+    s1 = 0.25 / qx1
+    c1 = torch.stack([qx1, (m01 + m10) * s1, (m02 + m20) * s1, (m21 - m12) * s1], -1)
+
+    qy2 = safe_sqrt(1.0 - m00 + m11 - m22) * 0.5
+    s2 = 0.25 / qy2
+    c2 = torch.stack([(m01 + m10) * s2, qy2, (m12 + m21) * s2, (m02 - m20) * s2], -1)
+
+    qz3 = safe_sqrt(1.0 - m00 - m11 + m22) * 0.5
+    s3 = 0.25 / qz3
+    c3 = torch.stack([(m02 + m20) * s3, (m12 + m21) * s3, qz3, (m10 - m01) * s3], -1)
+
+    cond0 = (trace > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    q = torch.where(cond0, c0, torch.where(cond1, c1, torch.where(cond2, c2, c3)))
+    return quat_normalize(q)
+
+
+def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Quaternions from unit axes (..., 3) and angles (...,)."""
+    half = angle * 0.5
+    s = torch.sin(half)[..., None]
+    w = torch.cos(half)[..., None]
+    return torch.cat([axis * s, w], dim=-1)
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:

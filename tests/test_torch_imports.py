@@ -12,8 +12,10 @@ robot-variant path and the tool scripts among them) and ``chip_smoke.py``,
 steps a 2-env ``TrifingerEnv`` on D1 and on the D4 + DR preset, reads a
 shipped ``.npz`` policy, runs the legacy CLI's config loading, a URDF
 robot's chain step, a benchmark point, the asset export and a trajectory
-dump, runs ``graft_entry.entry``'s env step, takes a viewer frame, and
-trains a 2-env ``Runner`` for one epoch.
+dump, steps a 2-env env through the reference engine (``engine:
+"reference"``), runs one ``bench`` window and one ``decompose_bench --what
+physics`` window, runs ``graft_entry.entry``'s env step, takes a viewer
+frame, and trains a 2-env ``Runner`` for one epoch.
 """
 
 import os
@@ -71,7 +73,8 @@ for name in ("learning.ppo", "learning.runner", "learning.train", "scripts.train
              "scripts.trifinger_random_action", "scripts.trajectory_parity",
              "parallel.mesh", "parallel.launch", "parallel.dryrun", "graft_entry",
              "utils.viewer", "scripts.replay_viewer", "scripts.multihost_demo",
-             "scripts.scaling_bench"):
+             "scripts.scaling_bench", "ops.engine", "ops.contact", "bench",
+             "scripts.decompose_bench"):
     assert "leibnizgym_tpu_torch." + name in names, name
 
 # the robot-variant path, the legacy CLI and the tools run without JAX
@@ -93,6 +96,27 @@ with tempfile.TemporaryDirectory() as tmp:
     assert export_assets.main(["--out", tmp]) == 0
     assert trajectory_parity.main(["dump", "--device", "cpu", "--num-envs", "2", "--steps",
                                    "1", "--out", tmp + "/t.npz"]) == 0
+
+# the reference engine steps an env; one bench window and one decompose_bench
+# physics window run
+from leibnizgym_tpu_torch import bench
+from leibnizgym_tpu_torch.ops import physics_step
+from leibnizgym_tpu_torch.scripts import decompose_bench
+env = TrifingerEnv(config={"num_instances": 2, "command_mode": "torque", "engine": "reference",
+                           "sim": {"substeps": 1, "physx": {"num_position_iterations": 2}}},
+                   device="cpu", verbose=False)
+assert env.static.engine == "reference"
+env.reset()
+obs = env.step(torch.zeros(2, 9))[0]
+assert bool(torch.isfinite(obs).all())
+import os
+os.environ.update(BENCH_SKIP_LIGHT="1", BENCH_SKIP_SOLVER8="1", BENCH_SKIP_PPO="1",
+                  BENCH_NUM_ENVS="2", BENCH_TRIALS="1")
+line = bench.main(["--device", "cpu", "--rounds", "1", "--window", "1", "--warmup", "0"])
+assert line["value"] > 0 and line["device"] == "cpu"
+out = decompose_bench.main(["--device", "cpu", "--num-envs", "2", "--what", "physics",
+                            "--rounds", "1", "--length", "1", "--substeps", "1"])
+assert out["physics_soa_ms"] > 0 and out["physics_reference_ms"] > 0
 
 # the graft entry's env step and a viewer frame run without JAX
 from leibnizgym_tpu_torch.graft_entry import entry

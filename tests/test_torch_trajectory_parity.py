@@ -8,7 +8,9 @@ compile and run here). The port's ``dump`` replays that rollout at 16 envs
 x 10 steps on the CPU, through the plain physics step, with the JAX env's
 reset and goal draws and the JAX script's action stream injected (the key
 splits of ``TrifingerEnv.reset``, ``env_step`` and the script's action
-loop). Through the port's ``compare``:
+loop). ``--engine reference`` is compared the same way, at 4 envs x 4
+steps, with a JAX dump the JAX script writes in the test through the JAX
+package's reference engine. Through the port's ``compare``:
 
 - q, cube_pos, cube_quat, obs and action within 2e-4, the goldens' own
   bound (tests/test_golden_trajectory.py:64-69);
@@ -138,13 +140,44 @@ def test_compare_codes_match_reference(dumps, tmp_path):
     assert ttp.main(["compare", str(ja), str(small)]) == 2
 
 
-def test_reference_engine_is_refused(tmp_path):
+REF_N, REF_T = 4, 4
+
+
+def test_reference_engine_dump_matches_jax_dump(tmp_path, capsys):
+    """``--engine reference``: the JAX script's dump through the JAX
+    package's reference engine (4 envs x 4 steps, written here) against the
+    port's through ``ops/engine.py``, replayed from the same draws and
+    actions; ``compare`` at each group's tolerance, as above."""
+    ref = _jax_script()
+    jax_out = tmp_path / "jax_reference.npz"
+    ref.dump(argparse.Namespace(num_envs=REF_N, steps=REF_T, seed=0, action_seed=1,
+                                difficulty=1, engine="reference", solver="tgs", substeps=2,
+                                iterations=4, arena=None, out=str(jax_out)))
+    a = np.load(jax_out, allow_pickle=True)
+    meta_a = json.loads(str(a["meta"]))
+    actions, draws = _reference_draws(0, 1, REF_N, REF_T)
+    ours = ttp.dump(_dump_args(tmp_path / "torch_reference.npz", num_envs=REF_N, steps=REF_T,
+                               engine="reference", arena=meta_a["arena"]), actions, draws)
+    assert {k: v for k, v in ours.items() if k not in ("framework", "device")} == \
+        {k: v for k, v in meta_a.items() if k != "framework"}
+    b = np.load(tmp_path / "torch_reference.npz", allow_pickle=True)
+    assert float(np.abs(b["q"][-1] - b["q"][0]).max()) > 1e-2
+    capsys.readouterr()
+    for name, (keys, tol) in GROUPS.items():
+        pair = [_save(tmp_path / f"ref_{name}_{i}.npz", json.loads(str(x["meta"])),
+                      {k: x[k] for k in keys}) for i, x in enumerate((a, b))]
+        rc = ttp.compare(argparse.Namespace(file_a=str(pair[0]), file_b=str(pair[1]), tol=tol))
+        out = capsys.readouterr().out
+        assert rc == 0 and "verdict: PARITY" in out, out
+
+
+def test_unknown_engine_is_refused(tmp_path):
     with pytest.raises(SystemExit) as exc:
-        ttp.main(["dump", "--engine", "reference", "--device", "cpu", "--out",
+        ttp.main(["dump", "--engine", "bogus", "--device", "cpu", "--out",
                   str(tmp_path / "x.npz")])
     assert exc.value.code == 2 and not (tmp_path / "x.npz").exists()
-    with pytest.raises(ValueError, match="not ported"):
-        ttp.dump(_dump_args(tmp_path / "x.npz", engine="reference"))
+    with pytest.raises(ValueError, match="Invalid engine"):
+        ttp.dump(_dump_args(tmp_path / "x.npz", engine="bogus"))
 
 
 def test_seeded_dump_is_reproducible(tmp_path):
