@@ -21,9 +21,11 @@ Phases (each prints its own lines; any failure exits non-zero):
     build and sweep (iterations 1/2/4/8, substeps 1/4, a linear fit); the
     launch geometry (32 envs per block, the one the design allows);
  5. training: the same preset through ``Runner`` + ``Runner.train`` (what
-    ``run_training`` and the CLI call) for EPOCHS epochs into a temporary
-    logdir, full widths (obs 41, states 113, MLPs 400/200/100, minibatch
-    8192, 4 + 4 mini-epochs, horizon 32). Checks: finite losses, KL and lr,
+    ``run_training`` and the CLI call; on the card its epoch is the captured
+    one of ``learning/graphs.py``, as in phases 6 and 8) for EPOCHS epochs
+    into a temporary logdir, full widths (obs 41, states 113, MLPs
+    400/200/100, minibatch 8192, 4 + 4 mini-epochs, horizon 32). Checks: the
+    Runner's epoch is the graphed one, finite losses, KL and lr,
     lr within [1e-6, 1e-2], the parameters moved, info/frames, the kernel
     launched 1 + 32 * EPOCHS times (the reset, then one launch per env step),
     the ``final`` checkpoint restored bit-identically into a fresh Runner,
@@ -108,10 +110,25 @@ Phases (each prints its own lines; any failure exits non-zero):
     line with the reference's keys (``bench.KEYS``), finite, rates > 0, and
     3 x (1 + 12 x 100) + 1 + 12 x 32 kernel launches. (d)
     ``decompose_bench.py --what physics_pallas`` and ``--what env`` at 8192
-    envs (1,100 and 1,101 launches) and the MDP layer's ms between them.
+    envs (1,100 launches; 2 x 1,101, the captured env step then the eager
+    one) and the MDP layer's ms between them.
+13. the compiled paths (``learning/graphs.py``, the captured env step): an
+    eager and a graphed ``Runner`` from the same seed trained one epoch at
+    a time through ``Runner.train``, held bitwise equal after every epoch
+    (the epoch's metrics, parameters, Adam moments and counts, lr, the
+    rollout carry and env state): the D1 preset with a frame-ramped
+    position tolerance over 5 epochs, a checkpoint of epoch 1 restored into
+    both before the fourth; the D4 + DR preset over 3 epochs, the
+    success-gated level written before the third. Each graphed epoch
+    launches the kernel 32 times (its rollout graph's replay). Then the
+    D4 + DR env's captured reset and 12 steps against the eager functions
+    from the same draws and actions: outputs, states and env state bitwise
+    equal, a kept obs and a kept ``env.state`` unchanged by the next step,
+    one launch per call.
 The last two lines are the kernels' JSON record (times, flops, bytes and
 bound from phase 6; launches summed over the counted paths of phases 4-6
-and 8-12) and the device JSON line.
+and 8-13, graph replays counted by the launches they captured) and the
+device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
 
@@ -138,6 +155,7 @@ try:
     from leibnizgym_tpu_torch.models import trifinger as tf_model
     from leibnizgym_tpu_torch.envs.trifinger import env as tenv
     from leibnizgym_tpu_torch.learning import ppo
+    from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
     from leibnizgym_tpu_torch.learning.runner import Runner
     from leibnizgym_tpu_torch.models import networks as tnets
     from leibnizgym_tpu_torch import bench
@@ -601,7 +619,6 @@ def phase_training(dev, num_envs: int = 8192, epochs: int = EPOCHS):
     cfg["args"]["seed"] = SEED
     cfg = update_cfg(cfg)
     marks, history = [], []
-    train_iter = marked_train_iter(history, marks)
 
     with tempfile.TemporaryDirectory() as logdir:
         runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
@@ -611,7 +628,7 @@ def phase_training(dev, num_envs: int = 8192, epochs: int = EPOCHS):
                   pcfg.cv_minibatch_size, pcfg.mini_epochs, pcfg.cv_mini_epochs, pcfg.horizon)
         check(widths == (41, 113, (400, 200, 100), 8192, 8192, 4, 4, 32),
               f"phase 5 is not the D1 preset at full widths: {widths}")
-        runner._train_iter = train_iter
+        runner._train_iter = graphed_train_iter("phase 5", runner, history, marks)
 
         # the main path, counted
         cuda_engine.launch_count = 0
@@ -684,9 +701,11 @@ def kernel_vs_plain_on(tag: str, es, st, referee: bool = False):
     return kernel_vs_plain(tag, packed, st.solver, st.dt, referee), packed
 
 
-def marked_train_iter(history: list, marks: list):
-    """``ppo.train_iteration`` recording its metrics in ``history`` and a
+def marked_train_iter(history: list, marks: list, inner=None):
+    """``inner`` (``ppo.train_iteration`` by default; a Runner's own epoch,
+    the graphed one on the card) recording its metrics in ``history`` and a
     CUDA event at its start and after each of its phases in ``marks``."""
+    inner = inner if inner is not None else ppo.train_iteration
 
     def mark(name):
         ev = torch.cuda.Event(enable_timing=True)
@@ -695,11 +714,19 @@ def marked_train_iter(history: list, marks: list):
 
     def train_iter(pcfg, static, env_params, ts):
         mark("start")
-        metrics = ppo.train_iteration(pcfg, static, env_params, ts, on_phase=mark)
+        metrics = inner(pcfg, static, env_params, ts, on_phase=mark)
         history.append(metrics)
         return metrics
 
     return train_iter
+
+
+def graphed_train_iter(tag: str, runner, history: list, marks: list):
+    """The Runner's own epoch, which must be the graphed one on the card,
+    marked as ``marked_train_iter`` marks."""
+    check(isinstance(runner._train_iter, GraphedEpoch),
+          f"{tag}: the Runner's epoch is {runner._train_iter!r}, not the graphed one")
+    return marked_train_iter(history, marks, runner._train_iter)
 
 
 def print_epoch_split(tag: str, marks: list, epochs: int, h: int, n: int) -> dict:
@@ -732,13 +759,19 @@ D4_PRESET = "trifinger_difficulty_4_curriculum_dr"
 D4_EPOCHS = 4  # a warm-up epoch, then 3 timed epochs
 
 
-def phase_d4(dev, num_envs: int = 8192, epochs: int = D4_EPOCHS):
-    """The D4 flagship recipe (DR, keypoint obs, success-gated curriculum)
-    through Runner.train at full widths; returns the kernel's record."""
+def d4_config(num_envs: int):
+    """The D4 + DR preset with the asymmetric agent config and the preset's
+    agent overrides at ``num_envs``, seed SEED."""
     cfg = parse_cli([f"gym={D4_PRESET}"])  # rlg = asymm, with the preset's rlg_overrides
     cfg["args"]["num_envs"] = num_envs
     cfg["args"]["seed"] = SEED
-    cfg = update_cfg(cfg)
+    return update_cfg(cfg)
+
+
+def phase_d4(dev, num_envs: int = 8192, epochs: int = D4_EPOCHS):
+    """The D4 flagship recipe (DR, keypoint obs, success-gated curriculum)
+    through Runner.train at full widths; returns the kernel's record."""
+    cfg = d4_config(num_envs)
     marks, history = [], []
     with tempfile.TemporaryDirectory() as logdir:
         runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
@@ -753,7 +786,7 @@ def phase_d4(dev, num_envs: int = 8192, epochs: int = D4_EPOCHS):
         check(st.dr_activate and st.use_keypoint_obs and st.curriculum_success_gated
               and float(base.wall_slope) > 0, "phase 6 lacks DR, keypoints, the gated "
               "curriculum or the cone arena")
-        runner._train_iter = marked_train_iter(history, marks)
+        runner._train_iter = graphed_train_iter("phase 6", runner, history, marks)
 
         # this slice's path, counted
         cuda_engine.launch_count = 0
@@ -936,7 +969,7 @@ def phase_bf16(dev, f32_split: dict, num_envs: int = 8192, epochs: int = BF16_EP
                         seed=SEED, device=dev)
         pcfg, st = runner.ppo_cfg, runner.static
         check_d1_widths("phase 8", runner)
-        runner._train_iter = marked_train_iter(history, marks)
+        runner._train_iter = graphed_train_iter("phase 8", runner, history, marks)
 
         # this slice's main path, counted
         cuda_engine.launch_count = 0
@@ -2039,7 +2072,9 @@ def run_decompose() -> int:
     res = {}
     for what, keys, expected in (
             ("physics_pallas", ("physics_pallas_ms", "physics_pallas_steps_per_s"), steps),
-            ("env", ("env_ms", "env_steps_per_s"), 1 + steps)):
+            # the captured env step, then the eager one: a reset and the steps each
+            ("env", ("env_ms", "env_steps_per_s", "env_eager_ms", "env_eager_steps_per_s"),
+             2 * (1 + steps))):
         out = run_json(f"decompose_bench {what}", ["leibnizgym_tpu_torch.scripts.decompose_bench",
                                                    "--what", what])
         check_numbers(f"decompose {what}", out,
@@ -2051,8 +2086,8 @@ def run_decompose() -> int:
         res.update(out)
     if "env_ms" in res and "physics_pallas_ms" in res:
         print(f"{smi()} decompose mdp_layer_ms={res['env_ms'] - res['physics_pallas_ms']:.4f} "
-              f"(env_ms {res['env_ms']} - physics_pallas_ms {res['physics_pallas_ms']})",
-              flush=True)
+              f"(env_ms {res['env_ms']} - physics_pallas_ms {res['physics_pallas_ms']}) "
+              f"eager env_ms={res.get('env_eager_ms')}", flush=True)
     return launches
 
 
@@ -2068,6 +2103,181 @@ def phase_engines(dev):
     launches["c"] = run_bench()
     launches["d"] = run_decompose()
     print("engines launches " + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    return {"launches": sum(launches.values())}
+
+
+# ---------------------------------------------------------------------------
+# phase 13
+# ---------------------------------------------------------------------------
+
+# the D1 preset's frame ramp of phase 13: the position tolerance from 5 cm to
+# the preset's 1 cm over 1,048,576 env steps (4 epochs of 32 x 8192)
+RAMP_INIT, RAMP_FRAMES = 0.05, 1048576.0
+GRAPH_ENV_STEPS = 12
+
+
+def learner_state(runner) -> dict:
+    """Every tensor an epoch changes: parameters, Adam moments and counts,
+    lr, and the rollout carry (env state, obs, states, accumulators)."""
+    ts = runner.ts
+    out = {f"{net}.{k}": v for net, mod in (("ac", ts.actor_critic), ("cv", ts.central_value))
+           for k, v in mod.state_dict().items()}
+    for tag, opt in (("ac_opt", ts.ac_opt), ("cv_opt", ts.cv_opt)):
+        out.update({f"{tag}.mu.{k}": m for k, m in zip(opt.names, opt.mu)})
+        out.update({f"{tag}.nu.{k}": m for k, m in zip(opt.names, opt.nu)})
+        out[f"{tag}.count"] = opt.count
+    out["lr"] = ts.lr
+    out.update({f"carry.{k}": v for k, v in tenv.env_state_tensors(ts.carry.env_state).items()})
+    out.update({f"carry.{k}": getattr(ts.carry, k)
+                for k in ("obs", "states", "ep_return", "ep_len")})
+    return out
+
+
+def unequal(a: dict, b: dict) -> dict:
+    """{key: max |a - b|} of the entries that are not bitwise equal."""
+    out = {}
+    for k, x in a.items():
+        y = b[k]
+        if torch.is_tensor(x):
+            if not torch.equal(x, y):
+                out[k] = float((x.double() - y.double()).abs().max())
+        elif x != y:
+            out[k] = abs(float(x) - float(y))
+    return out
+
+
+def graph_pair(tag: str, cfg, dev, logdir: str, events) -> int:
+    """An eager and a graphed Runner of ``cfg`` from seed SEED, trained one
+    epoch at a time through ``Runner.train``; before epoch ``e``,
+    ``events[e]`` (None, or a function of the two runners) runs. After each
+    epoch the epoch's metrics and every learner and carry tensor must be
+    bitwise equal. Returns the graphed runner's kernel launches."""
+    runners, hist, launches = {}, {"eager": [], "graphed": []}, 0
+    for mode in ("eager", "graphed"):
+        r = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"],
+                   logdir=os.path.join(logdir, mode), seed=SEED, device=dev)
+        inner = ppo.train_iteration if mode == "eager" else r._train_iter
+        if mode == "graphed":
+            check(isinstance(inner, GraphedEpoch), f"{tag}: the Runner's epoch is not graphed")
+        r._train_iter = marked_train_iter(hist[mode], [], inner)
+        runners[mode] = r
+    cuda_engine.launch_count = 0
+    runners["graphed"].reset()
+    launches += cuda_engine.launch_count
+    runners["eager"].reset()
+    for e, event in enumerate(events, 1):
+        if event is not None:
+            event(runners)
+        ms = {}
+        for mode, r in runners.items():
+            t = time.perf_counter()
+            before = cuda_engine.launch_count
+            r.train(max_epochs=r.ts.epoch + 1)
+            torch.cuda.synchronize()
+            ms[mode] = (time.perf_counter() - t) * 1e3
+            if mode == "graphed":
+                launches += cuda_engine.launch_count - before
+                check(cuda_engine.launch_count - before == r.ppo_cfg.horizon,
+                      f"{tag} epoch {e}: {cuda_engine.launch_count - before} launches")
+        me, mg = hist["eager"][-1], hist["graphed"][-1]
+        metrics = unequal(me, mg)
+        state = unequal(learner_state(runners["eager"]), learner_state(runners["graphed"]))
+        worst = max(list(metrics.values()) + list(state.values()) + [0.0])
+        g = runners["graphed"]
+        tol = mg.get("env/position_tolerance")
+        print(f"{smi()} graphs {tag} epoch={e} bitwise={not metrics and not state} "
+              f"max_abs={worst:.3e} metrics_unequal={sorted(metrics)[:6]} "
+              f"state_unequal={len(state)} first={sorted(state)[:4]} "
+              f"position_tolerance={None if tol is None else float(tol)} level={g._cur_level} "
+              f"frames={int(g.ts.carry.env_state.frames)} count={int(g.ts.ac_opt.count)} "
+              f"train_ms eager={ms['eager']:.1f} graphed={ms['graphed']:.1f}", flush=True)
+        check(not metrics and not state, f"{tag} epoch {e}: the graphed epoch differs from "
+              f"the eager one: {sorted(metrics)[:6]} {sorted(state)[:6]} max {worst:.3e}")
+    for r in runners.values():
+        if r.writer is not None:
+            r.writer.close()
+    return launches
+
+
+def graph_env_step(dev, num_envs: int) -> int:
+    """The D4 + DR env's captured reset and step against the eager ones
+    from the same draws and actions: outputs, privileged states and env
+    state bitwise equal, a kept obs and a kept state unchanged by the next
+    step; one launch per call. Returns the captured env's launches."""
+    cfg = d4_config(num_envs)["gym"]
+    graphed = tenv.TrifingerEnv(config=copy.deepcopy(cfg), device=dev, verbose=False)
+    eager = tenv.TrifingerEnv(config=copy.deepcopy(cfg), device=dev, verbose=False)
+    eager._graphs = None
+    check(graphed._graphs is not None, "graphs: the env on the card is not graphed")
+    st = graphed.static
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    init = tenv.draw_init_randoms(st, gen, num_envs, dev)
+    cuda_engine.launch_count = 0
+    same = torch.equal(graphed.reset(init), eager.reset(init))
+    gs, es = tenv.env_state_tensors(graphed.state), tenv.env_state_tensors(eager.state)
+    same &= all(torch.equal(gs[k], es[k]) for k in es)  # the first reset's state
+    kept, bad, ms = None, [], {"eager": [], "graphed": []}
+    for t in range(GRAPH_ENV_STEPS):
+        action = torch.rand((num_envs, st.action_dim), generator=gen, device=dev) * 2.0 - 1.0
+        draws = tenv.draw_step_randoms(st, gen, num_envs, dev)
+        out = {}
+        for mode, env in (("graphed", graphed), ("eager", eager)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[mode] = env.step(action, draws) + (env.get_state(),)
+            torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+        (o, r, d, info, s), (eo, er, ed, einfo, es) = out["graphed"], out["eager"]
+        if not (torch.equal(o, eo) and torch.equal(r, er) and torch.equal(d, ed)
+                and torch.equal(s, es) and set(info) == set(einfo)
+                and all(torch.equal(info[k], einfo[k]) for k in info)):
+            bad.append(t)
+        if kept is not None and not (torch.equal(kept[0], kept[1])
+                                     and torch.equal(kept[2].physics.q, kept[3])):
+            bad.append(f"kept{t}")
+        state = graphed.state
+        kept = (o, o.clone(), state, state.physics.q.clone())
+    launches = cuda_engine.launch_count
+    gs, es = tenv.env_state_tensors(graphed.state), tenv.env_state_tensors(eager.state)
+    state_same = all(torch.equal(gs[k], es[k]) for k in es)
+    print(f"{smi()} graphs env_step envs={num_envs} steps={GRAPH_ENV_STEPS} reset_equal={same} "
+          f"unequal_steps={bad} state_equal={state_same} launches={launches} "
+          f"step_ms graphed median={float(np.median(ms['graphed'][2:])):.3f} "
+          f"eager median={float(np.median(ms['eager'][2:])):.3f}", flush=True)
+    check(same and not bad and state_same, f"graphs: the captured env differs: {bad}")
+    # the eager env launched too: one reset and GRAPH_ENV_STEPS steps each
+    check(launches == 2 * (1 + GRAPH_ENV_STEPS), f"graphs env launch_count {launches}")
+    return launches // 2
+
+
+def phase_graphs(dev, num_envs: int = 8192) -> dict:
+    """Phase 13: the captured epoch and env step against the eager ones."""
+    d1 = d1_config(num_envs)
+    term = d1["gym"]["termination_conditions"]["success"]
+    term.update(position_tolerance_init=RAMP_INIT, tolerance_anneal_frames=RAMP_FRAMES)
+    launches = {}
+    with tempfile.TemporaryDirectory() as logdir:
+        saved = os.path.join(logdir, "epoch1")
+
+        def keep(runners):  # the eager learner after epoch 1, as a checkpoint
+            runners["eager"].save("epoch1_copy")
+            os.replace(os.path.join(runners["eager"].nn_dir, "epoch1_copy"), saved)
+
+        def restore(runners):
+            for r in runners.values():
+                r.restore(saved)
+
+        launches["d1"] = graph_pair("d1_ramp", d1, dev, os.path.join(logdir, "d1"),
+                                    [None, keep, None, restore, None])
+
+        def level(runners):
+            for r in runners.values():
+                r._set_curriculum_level(0.5)
+
+        launches["d4"] = graph_pair("d4_dr", d4_config(num_envs), dev,
+                                    os.path.join(logdir, "d4"), [None, None, level])
+    launches["env"] = graph_env_step(dev, num_envs)
+    print("graphs launches " + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     return {"launches": sum(launches.values())}
 
 
@@ -2116,17 +2326,19 @@ def main() -> int:
     tools = timed("phase 10", phase_tools, dev)
     dp = timed("phase 11", phase_parallel, dev)
     engines = timed("phase 12", phase_engines, dev)
+    graphs = timed("phase 13", phase_graphs, dev)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
     print(smi(), flush=True)
     # phase 6 gives the times and the bound; the launches are every counted
-    # path's (phases 4-6 and 8-12); the error is the worst of phases 4-6
+    # path's (phases 4-6 and 8-13); the error is the worst of phases 4-6
     paths = {"phase 4": records["slice"]["launches"], "phase 5": records["train"]["launches"],
              "phase 6": records["d4"]["launches"], "phase 8": bf16["launches"],
              "phase 9": nan["launches"], "phase 10": tools["launches"],
-             "phase 11": dp["launches"], "phase 12": engines["launches"]}
+             "phase 11": dp["launches"], "phase 12": engines["launches"],
+             "phase 13": graphs["launches"]}
     print("launches " + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in paths.items()),
           flush=True)
     record = dict(records["d4"], launches=sum(paths.values()),

@@ -22,9 +22,11 @@ trials is ``--rounds`` (10) chunks of ``--window`` (100) env steps after
 below, shrink a run on the CPU), timed with ``time.perf_counter()`` and closed by
 ``torch.cuda.synchronize()``; the JSON has the median and the spread. A
 chunk's actions are one ``torch.rand`` draw of a seeded generator; each
-step's reset draws come from the env's generator, as the reference's
-env_step draws from its key. On the card the kernel is launched once per
-env step (1 + (warmup + trials x rounds) x window per configuration).
+step goes through ``TrifingerEnv.step``, whose reset draws come from the
+env's generator, as the reference's env_step draws from its key. On the
+card that step replays the captured env step (the reference times its
+jitted one) and the kernel is launched once per env step (1 + (warmup +
+trials x rounds) x window per configuration).
 
 ``env_flops_per_step`` / ``env_bytes_per_step`` are the physics kernel's
 own count (``cuda_engine.step_flops`` / ``step_bytes`` per env and physics
@@ -35,7 +37,8 @@ is left out. ``env_hbm_util`` is that traffic's rate over the H100's
 
 The PPO epoch (``learning.ppo.train_iteration`` at minibatch BENCH_NUM_ENVS
 and horizon ``--horizon`` (32), ``--warmup`` untimed and trials x rounds
-timed epochs) and its matmul MFU (analytic
+timed epochs; on the card the captured epoch of ``learning/graphs.py``,
+whose first call captures it) and its matmul MFU (analytic
 2 * P * B FLOPs, backward 2x forward, over ``cuda_engine.PEAK_BF16_FLOPS``)
 are part of the default output; BENCH_SKIP_PPO=1 skips them unless
 ``--ppo`` is given. BENCH_ENGINE=soa|pallas|reference picks the env's
@@ -56,13 +59,8 @@ import time
 
 import torch
 
-from leibnizgym_tpu_torch.envs.trifinger.env import (
-    TrifingerEnv,
-    draw_init_randoms,
-    draw_step_randoms,
-    env_reset,
-    env_step,
-)
+from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
+from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
 from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state, train_iteration
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.utils.helpers import resolve_device, smi, synchronize
@@ -100,29 +98,26 @@ def bench_env(args, substeps: int, solver_iterations=None):
     step, kernel bytes per env step) of one env configuration."""
     env = _env(args.num_envs, args.device, substeps, solver_iterations,
                os.environ.get("BENCH_ENGINE") or None)
-    static, params, device = env.static, env.params, env.device
-    gen = torch.Generator(device=device).manual_seed(0)
-    state, _ = env_reset(static, params, *draw_init_randoms(static, gen, static.num_envs,
-                                                            device))
+    static, device = env.static, env.device
+    env.seed(0)
+    env.reset()
     actions_gen = torch.Generator(device=device).manual_seed(1)
     shape = (args.window, static.num_envs, static.action_dim)
 
-    def chunk(state):
+    def chunk():
         actions = torch.rand(shape, generator=actions_gen, device=device) * 2.0 - 1.0
         for action in actions:
-            draws = draw_step_randoms(static, gen, static.num_envs, device)
-            state = env_step(static, params, state, action, draws)[0]
-        return state
+            env.step(action)
 
     for _ in range(args.warmup):
-        state = chunk(state)
+        chunk()
     synchronize(device)
     steps_per_trial = static.num_envs * args.window * args.rounds
     trial_sps = []
     for _ in range(args.trials):
         t0 = time.perf_counter()
         for _ in range(args.rounds):
-            state = chunk(state)
+            chunk()
         synchronize(device)
         trial_sps.append(steps_per_trial / (time.perf_counter() - t0))
     calls = static.control_decimation
@@ -140,14 +135,15 @@ def bench_ppo(args):
                     network_dtype=os.environ.get("BENCH_PPO_DTYPE", "float32"))
     static, params = env.static, env.params
     ts = init_train_state(cfg, static, params, 0)
+    epoch = GraphedEpoch() if env.device.type == "cuda" else train_iteration
     for _ in range(args.warmup):
-        train_iteration(cfg, static, params, ts)
+        epoch(cfg, static, params, ts)
     synchronize(env.device)
     trial_s = []
     for _ in range(args.trials):
         t0 = time.perf_counter()
         for _ in range(args.rounds):
-            m = train_iteration(cfg, static, params, ts)
+            m = epoch(cfg, static, params, ts)
         float(m["info/kl"])
         synchronize(env.device)
         trial_s.append((time.perf_counter() - t0) / args.rounds)

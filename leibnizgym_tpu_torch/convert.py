@@ -26,7 +26,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from leibnizgym_tpu_torch.envs.trifinger.env import EnvState
+from leibnizgym_tpu_torch.envs.trifinger.env import EnvState, frames_tensor
 from leibnizgym_tpu_torch.learning import ppo
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams
 
@@ -105,7 +105,7 @@ def env_state_from_jax(state, device="cpu") -> EnvState:
         successes=_tensor(f["successes"], device).to(torch.int32),
         tip_pos_prev_cm=_tensor(f["tip_pos_prev_cm"], device),
         obj_posquat_prev_cm=_tensor(f["obj_posquat_prev_cm"], device),
-        frames=int(np.asarray(f["frames"])),
+        frames=frames_tensor(np.asarray(f["frames"]), device),
     )
 
 

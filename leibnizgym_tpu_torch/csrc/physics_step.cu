@@ -1275,21 +1275,26 @@ physics_step_kernel(const LgConsts K, const real* __restrict__ state,
 static const size_t lg_smem_bytes = (size_t)LG_EPB * LG_ENV_FLOATS * sizeof(real);
 
 // The block's dynamic shared memory is above the 48 KB default: raise the cap.
+static bool lg_smem_set = false;
 static cudaError_t lg_set_smem() {
-  return cudaFuncSetAttribute(physics_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)lg_smem_bytes);
+  cudaError_t err = cudaFuncSetAttribute(
+      physics_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lg_smem_bytes);
+  if (err == cudaSuccess) lg_smem_set = true;
+  return err;
 }
+
+// Raises the shared-memory cap now, outside any stream capture: a CUDA graph
+// may then capture the first launch. Returns the CUDA error.
+extern "C" int leibniz_physics_step_prepare() { return (int)lg_set_smem(); }
 
 // Launches on `stream`; allocates nothing. Returns cudaGetLastError().
 extern "C" int leibniz_physics_step(const real* state, const real* params,
                                     const real* tau, real* out, real* wrench, int n,
                                     const LgConsts* consts, void* stream) {
   if (n <= 0) return 0;
-  static bool smem_set = false;
-  if (!smem_set) {
+  if (!lg_smem_set) {
     cudaError_t err = lg_set_smem();
     if (err != cudaSuccess) return (int)err;
-    smem_set = true;
   }
   const int blocks = (n + LG_EPB - 1) / LG_EPB;
   physics_step_kernel<<<blocks, LG_ROLES * LG_EPB, lg_smem_bytes, (cudaStream_t)stream>>>(

@@ -52,6 +52,7 @@ from leibnizgym_tpu_torch.envs.trifinger.rewards import (
     quat_diff_rad_c,
     quat_rotate_c,
 )
+from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops import engine as reference_engine
 from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda, physics_step_plain
 from leibnizgym_tpu_torch.ops.engine_v2 import fingertip_components_v2
@@ -164,9 +165,15 @@ class EnvParams:
     curriculum_level: torch.Tensor  # ()
 
     def with_curriculum_level(self, level: float) -> "EnvParams":
+        """A copy at ``level``; the tensors other than the level are shared."""
         like = self.dof_default_pos
-        return dataclasses.replace(self, curriculum_level=torch.tensor(
-            float(level), device=like.device, dtype=like.dtype))
+        return dataclasses.replace(self, curriculum_level=torch.full(
+            (), float(level), device=like.device, dtype=like.dtype))
+
+    def set_curriculum_level_(self, level: float) -> None:
+        """Write ``level`` into the level tensor in place, so that a captured
+        step or epoch that reads it sees the new level."""
+        self.curriculum_level.fill_(float(level))
 
 
 @dataclasses.dataclass
@@ -188,7 +195,7 @@ class EnvState:
     successes: torch.Tensor  # (N,) int32
     tip_pos_prev_cm: torch.Tensor  # (9, N) previous-step tip xyz, finger-major
     obj_posquat_prev_cm: torch.Tensor  # (7, N) previous-step object pos+quat
-    frames: int  # simulator frame counter (host side)
+    frames: torch.Tensor  # () int32, simulator frame counter, on the env's device
 
     def replace(self, **changes) -> "EnvState":
         return dataclasses.replace(self, **changes)
@@ -202,7 +209,7 @@ def env_state_tensors(state: EnvState) -> Dict[str, torch.Tensor]:
     """Every tensor of ``state`` under a flat name: the fields of
     ``physics`` and ``scene`` prefixed with ``physics_`` / ``scene_``
     (``physics_q``, ``scene_cube_mass``), the others under their own name
-    (``goal_pose_cm``, ``reset_buf``). ``frames``, a host int, is left out."""
+    (``goal_pose_cm``, ``reset_buf``, ``frames``)."""
     out = {}
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
@@ -213,14 +220,40 @@ def env_state_tensors(state: EnvState) -> Dict[str, torch.Tensor]:
     return out
 
 
-def env_state_from_tensors(tensors: Dict[str, torch.Tensor], frames: int) -> EnvState:
-    """The inverse of ``env_state_tensors``."""
+def env_state_from_tensors(tensors: Dict[str, torch.Tensor], frames=None) -> EnvState:
+    """The inverse of ``env_state_tensors``. ``frames`` (an int or a 0-d
+    tensor) stands in for a ``tensors`` that lacks it, as those written
+    before the counter moved onto the device do; it becomes a 0-d int32
+    tensor on the device of the other tensors."""
     nested = {"physics": PhysicsState, "scene": SceneParams}
     kw = {name: cls(**{f.name: tensors[f"{name}_{f.name}"] for f in dataclasses.fields(cls)})
           for name, cls in nested.items()}
     kw.update({f.name: tensors[f.name] for f in dataclasses.fields(EnvState)
                if f.name not in nested and f.name != "frames"})
-    return EnvState(frames=frames, **kw)
+    frames = tensors.get("frames", frames)
+    if frames is None:
+        raise KeyError("frames")
+    return EnvState(frames=frames_tensor(frames, kw["reset_buf"].device), **kw)
+
+
+def frames_tensor(frames, device) -> torch.Tensor:
+    """``frames`` (an int, a numpy scalar or a tensor) as a 0-d int32 tensor
+    on ``device``."""
+    return torch.as_tensor(np.array(frames, np.int32) if not torch.is_tensor(frames)
+                           else frames, device=device).to(torch.int32).reshape(())
+
+
+def clone_state(state: EnvState) -> EnvState:
+    """Every tensor of ``state`` copied into memory of its own."""
+    return env_state_from_tensors({k: v.clone() for k, v in env_state_tensors(state).items()})
+
+
+def copy_state_(dst: EnvState, src: EnvState) -> None:
+    """Write ``src`` into the tensors of ``dst`` in place (a captured step
+    keeps the addresses it was captured with)."""
+    srcs = env_state_tensors(src)
+    for k, d in env_state_tensors(dst).items():
+        d.copy_(srcs[k])
 
 
 # ---------------------------------------------------------------------------
@@ -542,15 +575,14 @@ def _sample_object_state(static: EnvStatic, params: EnvParams, u: torch.Tensor, 
     return pos, tuple(quat[:, i] for i in range(4))
 
 
-def _ori_difficulty_frac(static: EnvStatic, params: EnvParams, frames: int):
+def _ori_difficulty_frac(static: EnvStatic, params: EnvParams, frames: torch.Tensor):
     """The goal-orientation curriculum's swing fraction in [init, 1], from the
     success-gated level or the frame ramp; None when the curriculum is off.
     The ramp is float32, as in the reference."""
     if static.curriculum_success_gated:
         t = torch.clamp(params.curriculum_level, 0.0, 1.0)
     elif static.ori_difficulty_anneal_frames > 0.0:
-        env_steps = (torch.tensor(float(frames), device=params.curriculum_level.device)
-                     * static.envs_counted)
+        env_steps = frames.to(torch.float32) * static.envs_counted
         t = torch.clamp(env_steps / static.ori_difficulty_anneal_frames, 0.0, 1.0)
     else:
         return None
@@ -930,7 +962,7 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     obj_quat_prev = tuple(state.obj_posquat_prev_cm[i] for i in range(3, 7))
 
     # float before the product: an integer one overflows past 2.1 B env steps
-    env_steps_count = torch.tensor(float(frames), device=tau.device) * static.envs_counted
+    env_steps_count = frames.to(torch.float32) * static.envs_counted
     half_cols = tuple(state.scene.cube_half_extents[:, i] for i in range(3))
     reward, term_values = compute_rewards_c(
         static.reward_spec_dict(), static.dt, env_steps_count,
@@ -985,13 +1017,20 @@ def initial_state(static: EnvStatic, params: EnvParams) -> EnvState:
     like = params.dof_default_pos
     device, dtype = like.device, like.dtype
     zeros = lambda *shape: torch.zeros(shape, device=device, dtype=dtype)  # noqa: E731
+    # PhysicsState.default's values, written on the device (no host copy,
+    # so that a captured reset holds them)
+    cube_pos, cube_quat, goal_pose_cm = zeros(n, 3), zeros(n, 4), zeros(7, n)
+    cube_pos[:, 2].fill_(float(np.float32(tf_model.CUBE_SIZE / 2)))
+    cube_quat[:, 3].fill_(1.0)
+    goal_pose_cm[6].fill_(1.0)  # identity quaternion
+    physics = PhysicsState(q=params.dof_default_pos.expand(n, 9).clone(), qd=zeros(n, 9),
+                           cube_pos=cube_pos, cube_quat=cube_quat, cube_linvel=zeros(n, 3),
+                           cube_angvel=zeros(n, 3))
     return EnvState(
-        physics=PhysicsState.default(n, device, dtype),
+        physics=physics,
         scene=params.scene_base.broadcast(n),
         pd_scale=torch.ones((n, 2), device=device, dtype=dtype),
-        goal_pose_cm=torch.tensor(
-            [[0.0], [0.0], [0.0], [0.0], [0.0], [0.0], [1.0]], device=device, dtype=dtype
-        ).repeat(1, n),
+        goal_pose_cm=goal_pose_cm,
         goal_angvel_cm=zeros(3, n),
         action_buf=zeros(n, static.action_dim),
         applied_torque=zeros(n, 9),
@@ -1002,7 +1041,7 @@ def initial_state(static: EnvStatic, params: EnvParams) -> EnvState:
         successes=torch.zeros(n, dtype=torch.int32, device=device),
         tip_pos_prev_cm=zeros(9, n),
         obj_posquat_prev_cm=zeros(7, n),
-        frames=0,
+        frames=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -1056,7 +1095,13 @@ class TrifingerEnv(EnvBase):
     a data-parallel run: ``config["num_instances"]`` is the global count,
     the env steps the shard's ``n_local`` envs, its draws are the global
     blocks' rows of the shard, and the env-step counters count every
-    rank's envs."""
+    rank's envs.
+
+    On a CUDA device ``reset`` and ``step`` replay captured ``env_reset`` /
+    ``env_step`` graphs (``_EnvGraphs``), the counterpart of the reference's
+    ``jax.jit(env_step)`` / ``jax.jit(env_reset)``; on the CPU they run
+    eagerly. Either way they return tensors of their own, and ``state`` a
+    copy of the env state."""
 
     def __init__(self, config: Optional[dict] = None, device="cuda:0",
                  verbose: bool = True, dtype=torch.float32, visualize: bool = False,
@@ -1106,6 +1151,7 @@ class TrifingerEnv(EnvBase):
                          device=device, verbose=False, visualize=visualize)
         self.num_instances = self.static.num_envs
         self.verbose = verbose
+        self._graphs = _EnvGraphs(self) if self.device.type == "cuda" else None
         if verbose:
             print_info(
                 f"TrifingerEnv[torch {self.device}]: N={self.static.num_envs} "
@@ -1119,7 +1165,10 @@ class TrifingerEnv(EnvBase):
         the env's generator unless given."""
         if draws is None:
             draws = self._draw(draw_init_randoms)
-        self._state, obs = env_reset(self.static, self.params, *draws)
+        if self._graphs is not None:
+            self._state, (obs,) = self._graphs.reset(tuple(draws))
+        else:
+            self._state, obs = env_reset(self.static, self.params, *draws)
         self._last = (obs, None, None, None, {})
         return obs
 
@@ -1134,11 +1183,23 @@ class TrifingerEnv(EnvBase):
             )
         if draws is None:
             draws = self._draw(draw_step_randoms)
-        self._state, obs, states, reward, dones, info = env_step(
-            self.static, self.params, self._state, action, draws
-        )
+        if self._graphs is not None:
+            self._state, (obs, states, reward, dones, info) = self._graphs.step(
+                action, tuple(draws))
+        else:
+            self._state, obs, states, reward, dones, info = env_step(
+                self.static, self.params, self._state, action, draws
+            )
         self._last = (obs, states, reward, dones, info)
         return obs, reward, dones, info
+
+    @property
+    def state(self):
+        """The full functional EnvState; a copy where graphs step the env's
+        own state tensors in place."""
+        if self._graphs is not None and self._state is not None:
+            return clone_state(self._state)
+        return self._state
 
     def _draw(self, draw):
         """``draw``'s blocks from the env's generator: the global blocks'
@@ -1149,3 +1210,103 @@ class TrifingerEnv(EnvBase):
 
     def get_state(self):
         return self._last[1]
+
+
+def clone_nested(x):
+    """A copy of nested tuples and dicts of tensors and Nones (the draws'
+    and the step outputs' layouts)."""
+    if isinstance(x, dict):
+        return {k: clone_nested(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return tuple(clone_nested(v) for v in x)
+    return None if x is None else x.clone()
+
+
+def copy_nested_(dst, src) -> None:
+    """Write ``src`` into ``dst``, nested tuples of one layout; raises
+    ValueError on another layout."""
+    if isinstance(dst, (tuple, list)):
+        if not isinstance(src, (tuple, list)) or len(src) != len(dst):
+            raise ValueError("inputs of another layout than the captured ones")
+        for d, v in zip(dst, src):
+            copy_nested_(d, v)
+    elif dst is None:
+        if src is not None:
+            raise ValueError("inputs of another layout than the captured ones")
+    else:
+        dst.copy_(src)
+
+
+def _layout(x):
+    """The shapes, dtypes and Nones of a nested tuple of tensors."""
+    if isinstance(x, (tuple, list)):
+        return tuple(_layout(v) for v in x)
+    return None if x is None else (tuple(x.shape), x.dtype, x.device)
+
+
+class _EnvGraphs:
+    """The captured ``env_reset`` and ``env_step`` of one ``TrifingerEnv`` on
+    the card. Both write the env's one static state in place; the action
+    and the draws are copied into static inputs; the outputs are cloned out
+    of the graphs' buffers.
+
+    The first call of each (and the first after the env's ``params`` object,
+    or the layout of the inputs, changes) runs the function eagerly on a side
+    stream, as the warm-up before capture, and returns that result; it then
+    captures the graph, and later calls replay it. The physics kernel's
+    launches inside a replay count in ``cuda_engine.launch_count``."""
+
+    def __init__(self, env: "TrifingerEnv"):
+        self.env = env
+        self.state: Optional[EnvState] = None
+        self.graphs: Dict[str, tuple] = {}  # name -> (key, graph, inputs, outputs)
+
+    def reset(self, draws):
+        def body(draws):
+            state, obs = env_reset(self.env.static, self.env.params, *draws)
+            if self.state is None:
+                self.state = clone_state(state)
+            else:
+                copy_state_(self.state, state)
+            return (obs,)
+
+        outs = self._run("reset", body, (draws,))  # the first call sets self.state
+        return self.state, outs
+
+    def step(self, action, draws):
+        if self.state is None:
+            raise RuntimeError("step() before reset()")
+
+        def body(action, draws):
+            new_state, *outs = env_step(self.env.static, self.env.params, self.state,
+                                        action, draws)
+            copy_state_(self.state, new_state)
+            return tuple(outs)
+
+        outs = self._run("step", body, (action, draws))
+        return self.state, outs
+
+    def _run(self, name: str, body, inputs):
+        key = (self.env.params, _layout(inputs))
+        entry = self.graphs.get(name)
+        if entry is not None and entry[0][0] is key[0] and entry[0][1] == key[1]:
+            _, graph, static_in, static_out = entry
+            copy_nested_(static_in, inputs)
+            graph.replay()
+            return clone_nested(static_out)
+        device = self.env.device
+        with torch.cuda.device(device):
+            main = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                outs = body(*inputs)
+            main.wait_stream(side)
+            if self.env.static.engine == "pallas":
+                cuda_engine.prepare(device)
+            static_in = clone_nested(inputs)
+            graph = cuda_engine.CountedGraph()
+            with graph.capture():
+                static_out = body(*static_in)
+        self.graphs[name] = (key, graph, static_in, static_out)
+        return outs

@@ -20,7 +20,7 @@ from leibnizgym_tpu_torch.utils.math import quaternion_from_euler_xyz
 def default_orientation(num: int, device=None, dtype=torch.float32) -> torch.Tensor:
     """Identity quaternions, shape (num, 4), (x, y, z, w)."""
     quat = torch.zeros((num, 4), device=device, dtype=dtype)
-    quat[:, 3] = 1.0
+    quat[:, 3].fill_(1.0)
     return quat
 
 

@@ -14,9 +14,12 @@ Every random draw is "draw, then a pure function of the draws": the action
 noise and env reset blocks of the rollout, and the minibatch permutations,
 come from the train state's ``torch.Generator`` unless a caller injects
 them, as the parity tests do with the reference's draws. The learning rate
-stays a 0-d device tensor updated with ``torch.where``, so an epoch reads
-nothing back from the device. The modules and optimizer states are updated
-in place.
+stays a 0-d device tensor updated with ``torch.where``, and the Adam step
+counts are 0-d int32 device tensors (optax keeps ``count`` so), so an epoch
+reads nothing back from the device. The modules, the optimizer states, the
+learning rate and the rollout carry are updated in place: their tensors live
+as long as the learner, which lets ``learning/graphs.py`` capture the epoch
+as CUDA graphs that keep their addresses.
 
 A ``TrainState`` with a ``shard`` (``parallel.DataShard``) is one rank of a
 data-parallel run: its rollout steps the rank's envs with the global draws'
@@ -48,6 +51,8 @@ from leibnizgym_tpu_torch.envs.trifinger.env import (
     EnvParams,
     EnvState,
     EnvStatic,
+    clone_state,
+    copy_state_,
     draw_init_randoms,
     draw_step_randoms,
     env_reset,
@@ -202,8 +207,18 @@ class ClippedAdam:
       only when the norm is >= ``max_norm`` (torch's ``clip_grad_norm_``
       scales by ``max_norm / (norm + 1e-6)``, another number);
     - the moments are ``(1 - b) * g + b * m``, bias-corrected by
-      ``1 - b ** count`` in float32 as optax computes it;
+      ``1 - b ** count`` in float32 as optax computes it, with ``count`` a
+      0-d int32 tensor on the parameters' device (optax's ``count``), so a
+      step reads nothing from the host and a captured step counts on. The
+      power is taken in float64 and rounded once to float32, as the host's
+      float32 ``powf`` rounds it (the card's float32 ``pow`` misses that by
+      an ulp at 27 of the counts 1-512), and the moments are divided by it
+      as PyTorch divides a tensor by a host float: by true division on the
+      CPU, by multiplying with its float32 reciprocal on the card. The
+      step's numbers are then those of a count kept on the host;
     - ``lr`` may be a 0-d device tensor.
+
+    Every state tensor is written in place, ``load_state_dict`` included.
 
     ``max_norm`` None is ``truncate_grads: False``. In a data-parallel
     learner the minibatch steps average the gradients over the ranks before
@@ -218,13 +233,16 @@ class ClippedAdam:
         self.names, params = zip(*named_params)
         self.params: List[torch.Tensor] = list(params)
         self.max_norm = max_norm
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int32, device=self.params[0].device)
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
 
     @staticmethod
-    def _bias_correction(decay: float, count: int) -> float:
-        return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+    def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+        """``1 - decay ** count`` in float32 on ``count``'s device (the power
+        through float64, class docstring)."""
+        power = torch.pow(float(np.float32(decay)), count.to(torch.float64))
+        return 1.0 - power.to(torch.float32)
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor], lr,
@@ -246,9 +264,15 @@ class ClippedAdam:
         torch._foreach_mul_(sq, 1.0 - self.b2)
         torch._foreach_mul_(self.nu, self.b2)
         torch._foreach_add_(self.nu, sq)
-        self.count += 1
-        upd = torch._foreach_div(self.mu, self._bias_correction(self.b1, self.count))
-        den = torch._foreach_div(self.nu, self._bias_correction(self.b2, self.count))
+        self.count.add_(1)
+        bc1 = self._bias_correction(self.b1, self.count)
+        bc2 = self._bias_correction(self.b2, self.count)
+        if bc1.is_cuda:  # a host scalar's division on the card (class docstring)
+            upd = torch._foreach_mul(self.mu, torch.reciprocal(bc1))
+            den = torch._foreach_mul(self.nu, torch.reciprocal(bc2))
+        else:
+            upd = torch._foreach_div(self.mu, bc1)
+            den = torch._foreach_div(self.nu, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self.eps)
         torch._foreach_div_(upd, den)
@@ -261,9 +285,12 @@ class ClippedAdam:
                 "nu": dict(zip(self.names, self.nu))}
 
     def load_state_dict(self, state: dict) -> None:
-        """Raises KeyError / ValueError, before changing anything, when
-        ``state`` does not hold a moment of each parameter's shape."""
-        moments = []
+        """Copy ``state`` into this optimizer's tensors, in place; its
+        ``count`` may be an int (checkpoints written before the count moved
+        onto the device) or a tensor. Raises KeyError / ValueError, before
+        changing anything, when ``state`` does not hold a moment of each
+        parameter's shape."""
+        count = state["count"]
         for key in ("mu", "nu"):
             if set(state[key]) != set(self.names):
                 raise KeyError(f"optimizer {key} names {sorted(state[key])} != {sorted(self.names)}")
@@ -271,12 +298,13 @@ class ClippedAdam:
                 if tuple(state[key][name].shape) != tuple(p.shape):
                     raise ValueError(f"optimizer {key}[{name}] shape "
                                      f"{tuple(state[key][name].shape)} != {tuple(p.shape)}")
-            # copies: the optimizer steps its moments in place, and must not
-            # step the caller's tensors (a checkpoint kept to restore again)
-            moments.append([state[key][name].to(p, copy=True)
-                            for name, p in zip(self.names, self.params)])
-        self.mu, self.nu = moments
-        self.count = int(state["count"])
+        # copies: the optimizer steps its moments in place, and must not step
+        # the caller's tensors (a checkpoint kept to restore again)
+        with torch.no_grad():
+            for key, own in (("mu", self.mu), ("nu", self.nu)):
+                for name, dst in zip(self.names, own):
+                    dst.copy_(state[key][name])
+            self.count.copy_(torch.as_tensor(count).reshape(()))
 
 
 def make_optimizers(cfg: PPOConfig, actor_critic: ActorCritic,
@@ -309,16 +337,23 @@ class RolloutCarry:
     def start(cls, env_state: EnvState, obs: torch.Tensor, state_dim: int,
               cfg: PPOConfig) -> "RolloutCarry":
         """From a reset: clip the obs, tile it into the initial frame stack
-        (FrameStack.reset parity), zero states and accumulators."""
+        (FrameStack.reset parity), zero states and accumulators. Every env
+        state tensor gets memory of its own, as ``copy_`` writes into it."""
         n = obs.shape[0]
         obs = torch.clamp(obs, -cfg.clip_obs, cfg.clip_obs)
         return cls(
-            env_state=env_state,
+            env_state=clone_state(env_state),
             obs=obs.repeat(1, cfg.frames) if cfg.frames > 1 else obs,
             states=obs.new_zeros((n, state_dim)),
             ep_return=obs.new_zeros(n),
             ep_len=torch.zeros(n, dtype=torch.int32, device=obs.device),
         )
+
+    def copy_(self, other: "RolloutCarry") -> None:
+        """Write ``other`` into this carry's tensors in place."""
+        copy_state_(self.env_state, other.env_state)
+        for name in ("obs", "states", "ep_return", "ep_len"):
+            getattr(self, name).copy_(getattr(other, name))
 
 
 @dataclasses.dataclass
@@ -642,8 +677,9 @@ def train_iteration(cfg: PPOConfig, static: EnvStatic, env_params: EnvParams,
     layout) replace the generator's draws when given; ``on_phase`` is called
     with "rollout", "gae" and "update" as each phase has been enqueued."""
     ac, cv = ts.actor_critic, ts.central_value
-    ts.carry, traj = rollout(cfg, static, env_params, ts.carry, ac, cv, generator=ts.generator,
-                             noise=noise, env_draws=env_draws, shard=ts.shard)
+    carry, traj = rollout(cfg, static, env_params, ts.carry, ac, cv, generator=ts.generator,
+                          noise=noise, env_draws=env_draws, shard=ts.shard)
+    ts.carry.copy_(carry)
     with torch.no_grad():
         _, _, last_value = policy_and_value(ac, cv, ts.carry.obs, ts.carry.states)
     if on_phase is not None:
@@ -667,6 +703,87 @@ def _flat_batch(tensors: Dict[str, torch.Tensor],
     return {k: v.reshape((-1,) + v.shape[2:]) for k, v in tensors.items()}
 
 
+def advantages(cfg: PPOConfig, traj: Trajectory, last_value: torch.Tensor,
+               shard: Optional[DataShard] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(advantages, returns) of a trajectory: GAE, returns = advantages +
+    values, then the advantages normalised over the (global) batch when
+    configured."""
+    advs = gae(cfg, traj.reward, traj.value, traj.done, last_value)
+    returns = advs + traj.value
+    if cfg.normalize_advantage:
+        mean, std = global_mean_std(advs, shard)
+        advs = (advs - mean) / (std + 1e-8)
+    return advs, returns
+
+
+AC_KEYS = ("obs", "action", "mu", "log_std", "neglogp", "advs", "returns", "value")
+
+
+def minibatch_sources(cfg: PPOConfig, traj: Trajectory, advs: torch.Tensor,
+                      returns: torch.Tensor, asym: bool, shard: Optional[DataShard] = None):
+    """(the actor-critic step's tensors by ``AC_KEYS``, (states, returns) of
+    the central-value step or None): the time-major (h, n, ...) tensors
+    where the layout is time-sliced, else the flat (h * N, ...) batch, so
+    that a minibatch is ``index_select(0, idx)`` of a row of
+    ``minibatch_indices``."""
+    h, n = traj.value.shape
+    n_all = shard.n_global if shard is not None else n
+    (_, _, ac_ts), cv_layout = _layouts(cfg, h, n_all, asym)
+    fields = {"obs": traj.obs, "action": traj.action, "mu": traj.mu, "log_std": traj.log_std,
+              "neglogp": traj.neglogp, "advs": advs, "returns": returns, "value": traj.value,
+              "states": traj.states}
+    flat_keys = [] if ac_ts else list(AC_KEYS)
+    if asym and not cv_layout[2]:
+        flat_keys += ["states"] + ([] if flat_keys else ["returns"])
+    # a time-sliced minibatch takes its rows of the rank's own envs; a flat
+    # one is the same global minibatch on every rank, which computes all of
+    # it (the reference's partitioner replicates it after its all-gather)
+    flat = _flat_batch({k: fields[k] for k in flat_keys}, shard) if flat_keys else {}
+    data = {k: fields[k] if ac_ts else flat[k] for k in AC_KEYS}
+    cv_data = None
+    if asym:
+        src = fields if cv_layout[2] else flat
+        cv_data = (src["states"], src["returns"])
+    return data, cv_data
+
+
+def finish_epoch(cfg: PPOConfig, ts: TrainState, traj: Trajectory,
+                 per_step: Sequence[torch.Tensor], cv_losses: Optional[torch.Tensor],
+                 frames: int, clone: bool = False) -> Dict[str, torch.Tensor]:
+    """Count the epoch on the host (``ts.epoch``, ``ts.frame`` += ``frames``)
+    and assemble its metrics from the trajectory, the actor-critic steps'
+    terms (``per_step``: one (steps,) tensor per term, in
+    ``actor_critic_step``'s order) and the central-value losses (None
+    without a central value). ``clone`` copies the tensors passed through
+    unchanged, for a caller whose buffers the next epoch overwrites."""
+    ts.epoch += 1
+    ts.frame += frames
+    keep = (lambda x: x.clone()) if clone else (lambda x: x)
+    total, a_loss, c_loss, entropy, kl = (x.mean() for x in per_step[:5])
+    cv_loss = cv_losses.mean() if cv_losses is not None else traj.value.new_zeros(())
+    fin_n = traj.fin_n
+    return {
+        "losses/total": total,
+        "losses/a_loss": a_loss,
+        "losses/c_loss": c_loss,
+        "losses/entropy": entropy,
+        "losses/cv_loss": cv_loss,
+        "info/kl": kl,
+        # a copy: the learner's lr is written in place by the next epoch
+        "info/lr": ts.lr.clone(),
+        "info/epochs": float(ts.epoch),
+        "info/frames": float(ts.frame),
+        "rewards/step_mean": torch.mean(traj.reward) / cfg.reward_shaper_scale,
+        "episodes/finished_return_sum": torch.sum(torch.where(fin_n > 0, traj.fin_ret, 0.0)),
+        "episodes/finished_count": torch.sum(fin_n).to(torch.float32),
+        "episodes/finished_success_sum": keep(traj.fin_suc),
+        # per-env vectors (the runner pops them before scalar logging)
+        "episodes/finished_returns": keep(traj.fin_ret),
+        "episodes/finished_n": keep(fin_n),
+        **{k: keep(v) for k, v in traj.info.items()},
+    }
+
+
 def update(cfg: PPOConfig, ts: TrainState, traj: Trajectory, last_value: torch.Tensor,
            perms: Optional[Sequence[torch.Tensor]] = None,
            on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
@@ -681,70 +798,31 @@ def update(cfg: PPOConfig, ts: TrainState, traj: Trajectory, last_value: torch.T
     ac, cv = ts.actor_critic, ts.central_value
     asym = cv is not None
 
-    advs = gae(cfg, traj.reward, traj.value, traj.done, last_value)
-    returns = advs + traj.value
-    if cfg.normalize_advantage:
-        mean, std = global_mean_std(advs, shard)
-        advs = (advs - mean) / (std + 1e-8)
+    advs, returns = advantages(cfg, traj, last_value, shard)
     if on_phase is not None:
         on_phase("gae")
 
     if perms is None:
         perms = draw_permutations(cfg, h, n_all, asym, ts.generator, advs.device)
     ac_idx, cv_idx = minibatch_indices(cfg, h, n_all, asym, perms)
-    (_, _, ac_ts), cv_layout = _layouts(cfg, h, n_all, asym)
-    ac_keys = ("obs", "action", "mu", "log_std", "neglogp", "advs", "returns", "value")
-    fields = {"obs": traj.obs, "action": traj.action, "mu": traj.mu, "log_std": traj.log_std,
-              "neglogp": traj.neglogp, "advs": advs, "returns": returns, "value": traj.value,
-              "states": traj.states}
-    flat_keys = [] if ac_ts else list(ac_keys)
-    if asym and not cv_layout[2]:
-        flat_keys += ["states"] + ([] if flat_keys else ["returns"])
-    # a time-sliced minibatch takes its rows of the rank's own envs; a flat
-    # one is the same global minibatch on every rank, which computes all of
-    # it (the reference's partitioner replicates it after its all-gather)
-    flat = _flat_batch({k: fields[k] for k in flat_keys}, shard) if flat_keys else {}
-    data = {k: fields[k] if ac_ts else flat[k] for k in ac_keys}
+    data, cv_data = minibatch_sources(cfg, traj, advs, returns, asym, shard)
     lr, ac_terms = ts.lr, []
     for idx in ac_idx:
         mb = {k: v.index_select(0, idx) for k, v in data.items()}
         lr, terms = actor_critic_step(cfg, ac, ts.ac_opt, lr, mb, shard)
         ac_terms.append(terms)
-    ts.lr = lr
-    cv_loss = advs.new_zeros(())
+    ts.lr.copy_(lr)
+    cv_losses = None
     if asym:
-        src = fields if cv_layout[2] else flat
-        s, r = src["states"], src["returns"]
-        cv_loss = torch.stack([central_value_step(cfg, cv, ts.cv_opt, s.index_select(0, idx),
-                                                  r.index_select(0, idx), shard)
-                               for idx in cv_idx]).mean()
+        s, r = cv_data
+        cv_losses = torch.stack([central_value_step(cfg, cv, ts.cv_opt, s.index_select(0, idx),
+                                                    r.index_select(0, idx), shard)
+                                 for idx in cv_idx])
     if on_phase is not None:
         on_phase("update")
 
-    ts.epoch += 1
-    ts.frame += h * n_all
     per_step = [torch.stack(x) for x in zip(*ac_terms)]
-    total, a_loss, c_loss, entropy, kl = (x.mean() for x in per_step[:5])
-    fin_n = traj.fin_n
-    metrics = {
-        "losses/total": total,
-        "losses/a_loss": a_loss,
-        "losses/c_loss": c_loss,
-        "losses/entropy": entropy,
-        "losses/cv_loss": cv_loss,
-        "info/kl": kl,
-        "info/lr": lr,
-        "info/epochs": float(ts.epoch),
-        "info/frames": float(ts.frame),
-        "rewards/step_mean": torch.mean(traj.reward) / cfg.reward_shaper_scale,
-        "episodes/finished_return_sum": torch.sum(torch.where(fin_n > 0, traj.fin_ret, 0.0)),
-        "episodes/finished_count": torch.sum(fin_n).to(torch.float32),
-        "episodes/finished_success_sum": traj.fin_suc,
-        # per-env vectors (the runner pops them before scalar logging)
-        "episodes/finished_returns": traj.fin_ret,
-        "episodes/finished_n": fin_n,
-        **traj.info,
-    }
+    metrics = finish_epoch(cfg, ts, traj, per_step, cv_losses, h * n_all)
     if cfg.nan_telemetry:
         metrics.update(nan_metrics(traj, ts, advs, returns, kl_trace=per_step[4],
                                    grad_norms=per_step[5]))

@@ -35,6 +35,17 @@ has exited.
 ``visualize=True`` opens the live viewer (``utils/viewer.py``), drawn at
 every ``play`` step.
 
+On a CUDA device ``train`` runs each epoch as CUDA-graph replays
+(``learning/graphs.py``, the counterpart of the reference's
+``jax.jit(train_iteration)``); the epoch and frame bookkeeping, the metrics
+pipeline and the curriculum controller stay on the host. The controller
+writes the level into the env params' tensor in place, a restore writes into
+the learner's tensors in place, and the pipeline's pending metrics and
+snapshots are copies. Three paths stay eager and say so in one printed
+line: the data-parallel epoch (its NCCL collectives are not captured),
+``nan_telemetry``, and the play policy of ``make_policy`` (the env it steps
+is captured).
+
 With ``nan_telemetry`` the loop runs at depth 1 and keeps the whole train
 state before each epoch (``nan_dump_payload``: the checkpoint payload, the
 rollout carry and the generator's state, cloned on the device). A halt on a
@@ -68,6 +79,7 @@ from leibnizgym_tpu_torch.learning.ppo import (
     make_optimizers,
     train_iteration,
 )
+from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
 from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, data_shard, shard_batch
 
 
@@ -145,7 +157,10 @@ class Runner:
             self.shard = data_shard(num_actors)
         self.env = TrifingerEnv(config=task_cfg, device=self.device, verbose=verbose,
                                 visualize=visualize, shard=self.shard)
+        # the learner's params; the env keeps its own level tensor for play
+        # (make_policy), so that play does not move the trained level
         self.static, self.env_params = self.env.static, self.env.params
+        self.env.params = self.env_params.with_curriculum_level(0.0)
         self.seed = seed
 
         # log directories (reference run_rlg: nn/, runs/, timestamped), rank 0's
@@ -167,6 +182,15 @@ class Runner:
                        f"({dist.get_backend()}), {self.shard.n_local} on each")
 
         self._train_iter = train_iteration
+        if self.device.type == "cuda":
+            if self.shard is not None:
+                print_info("Runner: the data-parallel epoch runs eagerly (its collectives "
+                           "are not captured in CUDA graphs)")
+            elif self.ppo_cfg.nan_telemetry:
+                print_info("Runner: nan_telemetry runs the epoch eagerly (not captured in "
+                           "CUDA graphs)")
+            else:
+                self._train_iter = GraphedEpoch()
         self.game_rewards = AverageMeter(self.ppo_cfg.games_to_track)
         self.ts: Optional[TrainState] = None
 
@@ -190,8 +214,9 @@ class Runner:
             self._last_cur_save = 0.0
 
     def _set_curriculum_level(self, level: float):
+        # in place: the captured epoch reads the level's tensor
         self._cur_level = float(np.clip(level, 0.0, 1.0))
-        self.env_params = self.env_params.with_curriculum_level(self._cur_level)
+        self.env_params.set_curriculum_level_(self._cur_level)
 
     # ------------------------------------------------------------------ setup
 
@@ -211,7 +236,8 @@ class Runner:
 
         def opt_state(opt):
             s = opt.state_dict()
-            return {"count": s["count"], "mu": tensors(s["mu"]), "nu": tensors(s["nu"])}
+            return {"count": s["count"].clone() if clone else s["count"],
+                    "mu": tensors(s["mu"]), "nu": tensors(s["nu"])}
 
         payload = {
             "ac_state_dict": tensors(ts.actor_critic.state_dict()),
@@ -239,7 +265,7 @@ class Runner:
         payload = self._ckpt_payload(clone=True)
         payload["carry"] = {
             "env_state": {k: v.clone() for k, v in env_state_tensors(carry.env_state).items()},
-            "frames": carry.env_state.frames,
+            "frames": carry.env_state.frames.clone(),
             "obs": carry.obs.clone(), "states": carry.states.clone(),
             "ep_return": carry.ep_return.clone(), "ep_len": carry.ep_len.clone(),
         }
@@ -288,7 +314,7 @@ class Runner:
             ts.ac_opt, ts.cv_opt = make_optimizers(self.ppo_cfg, ts.actor_critic,
                                                    ts.central_value)
         if "lr" in payload:
-            ts.lr = torch.as_tensor(payload["lr"], dtype=torch.float32, device=self.device)
+            ts.lr.copy_(torch.as_tensor(payload["lr"], dtype=torch.float32).reshape(()))
         ts.epoch = int(payload["epoch"])
         ts.frame = int(payload["frame"])
         if "curriculum_level" in payload:
@@ -484,11 +510,14 @@ class Runner:
         (level 1.0) unless ``curriculum_level`` overrides it."""
         if self._cur_gated:
             lvl = 1.0 if curriculum_level is None else float(curriculum_level)
-            self.env.params = self.env.params.with_curriculum_level(lvl)
+            self.env.params.set_curriculum_level_(lvl)
             print_info(f"play: curriculum level {lvl:.2f}")
         cfg, shard = self.ppo_cfg, self.shard
         actor_critic = self.ts.actor_critic
         n_draw = self.num_envs_global
+        if self.device.type == "cuda":
+            print_info("play: the policy runs eagerly (not captured in a CUDA graph); "
+                       "the env's reset and step replay captured graphs")
 
         @torch.no_grad()
         def policy(obs, generator: Optional[torch.Generator] = None):

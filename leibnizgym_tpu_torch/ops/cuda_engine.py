@@ -12,7 +12,11 @@ flags) and loaded with ctypes.
 Dispatch is by the tensors' device and nothing else: ``physics_step_cuda`` on
 CUDA tensors launches the kernel (or raises), on CPU tensors it runs the
 plain PyTorch version ``physics_step_plain`` (``ops/engine_v2.py``).
-``launch_count`` counts kernel launches.
+``launch_count`` counts kernel launches, those inside CUDA graphs too: a
+graph captured through ``CountedGraph`` remembers how many launches it
+captured, and each replay adds that many. ``prepare`` builds the kernel and
+raises its shared-memory cap before any capture; the constants struct, which
+a graph keeps by value, is built once per ``(cfg, dt)``.
 
 The kernel's bound is computed here the same way whatever implements it:
 ``step_flops(cfg)`` counts the elementwise operations of one control step of
@@ -25,6 +29,7 @@ published float32 and memory rates.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import fcntl
@@ -55,7 +60,8 @@ from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConf
 __all__ = [
     "pack_state", "pack_params", "physics_step_cuda", "physics_step_plain",
     "step_packed_cuda", "launch_count", "build", "build_info", "kernel_consts",
-    "occupancy", "step_flops", "step_chain", "step_bytes", "bound_ms", "ENVS_PER_BLOCK",
+    "prepare", "CountedGraph", "occupancy", "step_flops", "step_chain", "step_bytes",
+    "bound_ms", "ENVS_PER_BLOCK",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -164,6 +170,13 @@ def kernel_consts(cfg: SolverConfig, dt: float, struct=_KernelConsts):
     return k
 
 
+@functools.lru_cache(maxsize=64)
+def _consts_for(cfg: SolverConfig, dt: float):
+    """``kernel_consts(cfg, dt)``, built once per ``(cfg, dt)``; the launch
+    reads it and does not write it."""
+    return kernel_consts(cfg, dt)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -227,6 +240,7 @@ def build() -> ctypes.CDLL:
     ]
     lib.leibniz_physics_step.restype = ctypes.c_int
     lib.leibniz_consts_size.restype = ctypes.c_int
+    lib.leibniz_physics_step_prepare.restype = ctypes.c_int
     if lib.leibniz_consts_size() != ctypes.sizeof(_KernelConsts):
         raise RuntimeError("LgConsts layout differs between physics_step.cu and Python")
     with open(log_path) as f:
@@ -235,6 +249,41 @@ def build() -> ctypes.CDLL:
                       library=lib_path, log=log_path)
     _lib = lib
     return lib
+
+
+def prepare(device=None) -> None:
+    """Build the kernel and raise its shared-memory cap on ``device`` (the
+    current one by default), outside any stream capture."""
+    lib = build()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        rc = lib.leibniz_physics_step_prepare()
+    if rc != 0:
+        raise RuntimeError(f"physics_step shared-memory cap failed: CUDA error {rc}")
+
+
+class CountedGraph:
+    """A ``torch.cuda.CUDAGraph`` whose replays add the kernel launches it
+    captured to ``launch_count``; capturing launches nothing and counts
+    nothing."""
+
+    def __init__(self):
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = 0
+
+    @contextlib.contextmanager
+    def capture(self, pool=None):
+        global launch_count
+        before = launch_count
+        try:
+            with torch.cuda.graph(self.graph, pool=pool):
+                yield self
+        finally:
+            self.launches, launch_count = launch_count - before, before
+
+    def replay(self) -> None:
+        global launch_count
+        self.graph.replay()
+        launch_count += self.launches
 
 
 def occupancy() -> dict:
@@ -275,7 +324,7 @@ def step_packed_cuda(state31: torch.Tensor, params40: torch.Tensor,
     lib = build()
     out = torch.empty_like(state31)
     wrench = torch.empty((WRENCH_ROWS, n), dtype=torch.float32, device=device)
-    consts = kernel_consts(cfg, dt)
+    consts = _consts_for(cfg, dt)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.leibniz_physics_step(

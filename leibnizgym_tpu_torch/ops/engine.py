@@ -560,8 +560,8 @@ def _substep(state: PhysicsState, tau: torch.Tensor, params: SceneParams,
     # ---- position integration + limits -----------------------------------
     # (TGS integrated the poses in its mini-steps)
     q_new = (p_q if tgs else q_f + h * qd_f).reshape(n, 9)
-    lower = torch.tensor(cfg.joint_limit_lower, dtype=pos.dtype, device=pos.device)
-    upper = torch.tensor(cfg.joint_limit_upper, dtype=pos.dtype, device=pos.device)
+    lower = const(cfg.joint_limit_lower, pos)
+    upper = const(cfg.joint_limit_upper, pos)
     q_clamped = saturate(q_new, lower, upper)
     qd9 = qd_f.reshape(n, 9)
     # kill outward velocity at the limits

@@ -24,10 +24,23 @@ _TIP = np.asarray(tf_model.TIP_OFFSET, dtype=np.float32)
 _MOUNT_Z = tf_model.MOUNT_HEIGHT
 
 
+_CONSTS: dict = {}
+
+
 def const(x, like: torch.Tensor) -> torch.Tensor:
     """``x`` (numpy, tensor or nested floats) as a tensor on ``like``'s device
-    and in its dtype."""
-    return torch.as_tensor(x, device=like.device, dtype=like.dtype)
+    and in its dtype. Host values are copied to the device once per value,
+    device and dtype, and the copy is shared: a CUDA graph captured after the
+    first call reads it and makes no host copy. Callers do not write into
+    it."""
+    if torch.is_tensor(x):
+        return x.to(device=like.device, dtype=like.dtype)
+    a = np.asarray(x)
+    key = (a.dtype.str, a.shape, a.tobytes(), like.device, like.dtype)
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(a, device=like.device, dtype=like.dtype)
+    return t
 
 
 def _rot(theta: torch.Tensor, rows) -> torch.Tensor:

@@ -20,21 +20,28 @@ SolverConfig, gates included. Each time is ``--rounds`` (10) windows of
 - ``physics_reference_*``: the batch-first reference engine
   (``ops/engine.py``). The reference script has no such pair (its
   reference engine is the XLA one it times under ``env``);
-- ``env_*``: the whole env step at zero action, reset draws from a seeded
-  generator; ``mdp_layer_ms`` = ``env_ms`` minus the physics time of the
-  env's default engine (``env_default_engine``: ``pallas`` on the card).
+- ``env_*``: the whole env step at zero action through
+  ``TrifingerEnv.step`` (on the card the captured step, as the reference
+  times its jitted one), reset draws from the env's seeded generator;
+  ``env_eager_*`` the same step through the eager ``env_step``, in turn
+  with it; ``mdp_layer_ms`` (``mdp_layer_eager_ms``) = ``env_ms``
+  (``env_eager_ms``) minus the physics time of the env's default engine
+  (``env_default_engine``: ``pallas`` on the card).
 
 ``physics`` runs the soa and reference pairs, ``physics_pallas`` the
 kernel's, ``all`` every pair and ``env``. On the card the plain engines take
 seconds per step at 8192 envs: ``physics`` and ``all`` run for tens of
 minutes there. ``ppo`` decomposes the epoch at ``--num-envs`` envs, each
-time over ``--rounds`` calls after one: the rollout alone (``ppo.rollout``
-of ``--horizon`` steps from one carry: the policy, central value and env
-step), the whole epoch
-(``ppo.train_iteration``, which runs ``ppo.update``) at minibatch N, 4N and
-8N with its sequential minibatch steps, and the update path (epoch minus
-rollout). Prints one JSON line, with ``device`` (the ``nvidia-smi`` name and
-power limit, ``cpu`` on the CPU) and ``kernel_launches``.
+time over ``--rounds`` calls after one (after two for a captured epoch: its
+first call captures it), graphed and eager side by side, in turns: the
+whole epoch at minibatch N, 4N and 8N with its sequential minibatch steps
+(``ppo_epoch*_ms``: the captured epoch of ``learning/graphs.py`` on the
+card; ``ppo_epoch*_eager_ms``: ``ppo.train_iteration``), the rollout
+(``ppo_rollout_ms``: the graphed epoch's rollout phase at minibatch N;
+``ppo_rollout_eager_ms``: ``ppo.rollout`` of ``--horizon`` steps from one
+carry, the policy, central value and env step) and the update path (epoch
+minus rollout). Prints one JSON line, with ``device`` (the ``nvidia-smi``
+name and power limit, ``cpu`` on the CPU) and ``kernel_launches``.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ from leibnizgym_tpu_torch.envs.trifinger.env import (
     env_step,
 )
 from leibnizgym_tpu_torch.learning import ppo
+from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops import engine as reference_engine
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams
@@ -68,6 +76,10 @@ ENV_KEYS = ("num_envs", "substeps", "solver_type", "iterations", "env_default_en
 PPO_KEYS = ("num_envs", "ppo_rollout_ms", "ppo_epoch_ms", "ppo_epoch_updates",
             "ppo_epoch_mb4_ms", "ppo_epoch_mb4_updates", "ppo_epoch_mb8_ms",
             "ppo_epoch_mb8_updates", "ppo_update_path_ms")
+# the eager figures beside the compiled ones (this script's, not the reference's)
+EAGER_ENV_KEYS = ("env_eager_ms", "env_eager_steps_per_s", "mdp_layer_eager_ms")
+EAGER_PPO_KEYS = ("ppo_rollout_eager_ms", "ppo_epoch_eager_ms", "ppo_epoch_mb4_eager_ms",
+                  "ppo_epoch_mb8_eager_ms", "ppo_update_path_eager_ms")
 
 
 def _time_loop(fn, carry, args, device) -> float:
@@ -94,28 +106,67 @@ def _time_calls(fn, device, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+class _Marks:
+    """Phase marks of an epoch (its ``on_phase`` hook): CUDA events on the
+    card, the host clock on the CPU; ``rollout_ms`` is the median time from
+    each epoch's start to its "rollout" mark."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def __call__(self, name: str):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append((name, ev))
+        else:
+            self.marks.append((name, time.perf_counter()))
+
+    def rollout_ms(self) -> float:
+        pairs = [(a[1], b[1]) for a, b in zip(self.marks, self.marks[1:])
+                 if a[0] == "start" and b[0] == "rollout"]
+        ms = [a.elapsed_time(b) if self.cuda else (b - a) * 1e3 for a, b in pairs]
+        return sorted(ms)[len(ms) // 2]
+
+
 def ppo_decomposition(args, out: dict) -> dict:
-    """The PPO epoch's critical path: the rollout alone, the whole epoch at
-    minibatch N, 4N and 8N, and the update path (epoch - rollout)."""
+    """The PPO epoch's critical path, graphed and eager in turns: the whole
+    epoch at minibatch N, 4N and 8N, the rollout, and the update path
+    (epoch - rollout)."""
     n = args.num_envs
     env = TrifingerEnv(config={"num_instances": n, "command_mode": "torque",
                                "asymmetric_obs": True, "sim": {"substeps": 4}},
                        device=args.device, verbose=False)
-    static, params = env.static, env.params
-    cfg = ppo.PPOConfig(minibatch_size=n, cv_minibatch_size=n, horizon=args.horizon)
-    ts = ppo.init_train_state(cfg, static, params, 0)
-    h = cfg.horizon
-    out["ppo_rollout_ms"] = round(_time_calls(lambda: ppo.rollout(
-        cfg, static, params, ts.carry, ts.actor_critic, ts.central_value,
-        generator=ts.generator), env.device, args.rounds), 2)
+    static, params, device = env.static, env.params, env.device
+    h = args.horizon
+    marks = _Marks(device)
     for mb_mult, tag in ((1, "ppo_epoch_ms"), (4, "ppo_epoch_mb4_ms"), (8, "ppo_epoch_mb8_ms")):
-        c = ppo.PPOConfig(minibatch_size=n * mb_mult, cv_minibatch_size=n * mb_mult,
-                          horizon=args.horizon)
-        t = ppo.init_train_state(c, static, params, 0)
-        out[tag] = round(_time_calls(lambda: ppo.train_iteration(c, static, params, t),  # noqa: B023
-                                     env.device, args.rounds), 2)
+        c = ppo.PPOConfig(minibatch_size=n * mb_mult, cv_minibatch_size=n * mb_mult, horizon=h)
+        eager = ppo.init_train_state(c, static, params, 0)
+        graphed = ppo.init_train_state(c, static, params, 0)
+        epoch = GraphedEpoch()
+        epoch(c, static, params, graphed)  # captures on the card
+
+        def graphed_epoch(c=c, graphed=graphed, epoch=epoch, marked=mb_mult == 1):
+            if marked:
+                marks("start")
+            epoch(c, static, params, graphed, on_phase=marks if marked else None)
+
+        out[tag.replace("_ms", "_eager_ms")] = round(_time_calls(
+            lambda c=c, eager=eager: ppo.train_iteration(c, static, params, eager), device,
+            args.rounds), 2)
+        out[tag] = round(_time_calls(graphed_epoch, device, args.rounds), 2)
         out[tag.replace("_ms", "_updates")] = c.mini_epochs * max(h * n // c.minibatch_size, 1)
+        if mb_mult == 1:
+            synchronize(device)
+            out["ppo_rollout_ms"] = round(marks.rollout_ms(), 2)
+            out["ppo_rollout_eager_ms"] = round(_time_calls(lambda: ppo.rollout(
+                c, static, params, eager.carry, eager.actor_critic, eager.central_value,
+                generator=eager.generator), device, args.rounds), 2)
     out["ppo_update_path_ms"] = round(out["ppo_epoch_ms"] - out["ppo_rollout_ms"], 2)
+    out["ppo_update_path_eager_ms"] = round(out["ppo_epoch_eager_ms"]
+                                            - out["ppo_rollout_eager_ms"], 2)
     return out
 
 
@@ -164,14 +215,19 @@ def decompose_env(args, device) -> dict:
         gen = torch.Generator(device=device).manual_seed(0)
         state, _ = env_reset(static, params, *draw_init_randoms(static, gen, n, device))
         action = torch.zeros((n, static.action_dim), device=device)
-        dt = _time_loop(lambda s: env_step(static, params, s, action,
-                                           draw_step_randoms(static, gen, n, device))[0],
-                        state, args, device)
-        out["env_ms"] = round(dt * 1e3, 4)
-        out["env_steps_per_s"] = round(n / dt)
+        env.seed(0)
+        env.reset()
+        dt = _time_loop(lambda _: env.step(action), None, args, device)
+        dt_eager = _time_loop(lambda s: env_step(static, params, s, action,
+                                                 draw_step_randoms(static, gen, n, device))[0],
+                              state, args, device)
+        for tag, t in (("env", dt), ("env_eager", dt_eager)):
+            out[f"{tag}_ms"] = round(t * 1e3, 4)
+            out[f"{tag}_steps_per_s"] = round(n / t)
         phys_key = f"physics_{static.engine}_ms"
         if phys_key in out:
             out["mdp_layer_ms"] = round(out["env_ms"] - out[phys_key], 4)
+            out["mdp_layer_eager_ms"] = round(out["env_eager_ms"] - out[phys_key], 4)
     return out
 
 

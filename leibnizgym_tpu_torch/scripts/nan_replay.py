@@ -78,8 +78,9 @@ def load_run(logdir: str, device):
         central_value.load_state_dict(dump["cv_state_dict"])
     c = dump["carry"]
     carry = ppo.RolloutCarry(
+        # a dump written while frames was a host int holds it beside the tensors
         env_state=env_state_from_tensors({k: v.to(device) for k, v in c["env_state"].items()},
-                                         int(c["frames"])),
+                                         c.get("frames")),
         obs=c["obs"].to(device), states=c["states"].to(device),
         ep_return=c["ep_return"].to(device), ep_len=c["ep_len"].to(device))
     generator = torch.Generator(device=device)
@@ -105,8 +106,8 @@ def bad_env_mask(state, reward: torch.Tensor) -> torch.Tensor:
 def env_slice(state, e: int) -> dict:
     """Env ``e``'s part of every tensor of the env state, as numpy."""
     out = {k: (x[:, e] if k.endswith("_cm") else x[e]).cpu().numpy()
-           for k, x in env_state_tensors(state).items()}
-    out["frames"] = np.asarray(state.frames)
+           for k, x in env_state_tensors(state).items() if k != "frames"}
+    out["frames"] = state.frames.cpu().numpy()
     return out
 
 

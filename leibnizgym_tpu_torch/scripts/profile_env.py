@@ -6,26 +6,29 @@ configurations).
     python -m leibnizgym_tpu_torch.scripts.profile_env --what train --num-envs 8192
     python -m leibnizgym_tpu_torch.scripts.profile_env --what physics --num-envs 8 --device cpu
 
-- ``env``: ``env_step`` of a torque-mode env with 2 substeps and a zero
-  action, ``--steps`` steps;
+- ``env``: ``TrifingerEnv.step`` of a torque-mode env with 2 substeps and a
+  zero action, ``--steps`` steps (on the card the captured step);
 - ``physics``: the physics step alone (the CUDA kernel on the card, its
   plain version on the CPU) from the default state and scene,
   ``SolverConfig(substeps=2, solver_iterations=4)``, ``--steps`` steps;
-- ``train``: ``--epochs`` (3) epochs of ``train_iteration`` with
-  ``PPOConfig(minibatch_size=N)`` on an asymmetric env, ``--horizon`` (32)
-  env steps each.
+- ``train``: ``--epochs`` (3) epochs with ``PPOConfig(minibatch_size=N)``
+  on an asymmetric env, ``--horizon`` (32) env steps each: on the card the
+  captured epoch of ``learning/graphs.py``, as ``Runner.train`` runs it.
 
-After one warm-up call (which builds the kernel) the window runs under
-``torch.profiler`` with CPU and CUDA activities, and its Chrome trace is
-written into ``--trace-dir`` (open it in Perfetto or chrome://tracing).
-Printed, with the card's name and power limit: the window's wall time and
-the device's busy time (the union of the kernel, memcpy and memset
-intervals of the trace) and idle share; the same window's wall time run
-again without the profiler, and the idle share against it; kernel launches
-(the kernels of the trace) and operator calls (top-level ``aten`` ops) per
-env step; the 10 device operations that took the most time. On the CPU the
-busy time is the union of the top-level operator calls and there are no
-kernels. The plain physics step is ~80,000 operator calls, so on the CPU
+``--eager`` profiles the eager functions instead (``env_step``,
+``train_iteration``). After one warm-up call (which builds the kernel and,
+graphed, captures) the window runs under ``torch.profiler`` with CPU and
+CUDA activities, and its Chrome trace is written into ``--trace-dir`` (open
+it in Perfetto or chrome://tracing). Printed, with the card's name and
+power limit: the window's wall time and the device's busy time (the union
+of the kernel, memcpy and memset intervals of the trace) and idle share;
+the same window's wall time run again without the profiler, and the idle
+share against it; per env step the kernels the device ran (a graph's
+included), the launches the host made (kernel, graph, memcpy and memset
+calls, ``cuda*`` of the runtime API and ``cu*`` below it, a ``cu*`` call
+inside a ``cuda*`` call counted once) and the operator calls (top-level ``aten`` ops); the 10
+device operations that took the most time. On the CPU the busy time is the
+union of the top-level operator calls and there are no kernels. The plain physics step is ~80,000 operator calls, so on the CPU
 keep the window small (``--steps 1``, ``--epochs 1 --horizon 1``).
 """
 
@@ -63,19 +66,45 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
+HOST_LAUNCHES = frozenset({
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel", "cudaGraphLaunch",
+    "cudaMemcpyAsync", "cudaMemsetAsync", "cuLaunchKernel", "cuLaunchKernelEx", "cuGraphLaunch",
+    "cuMemcpyAsync", "cuMemsetD8Async", "cuMemsetD32Async"})
+
+
+def host_launches(trace) -> dict:
+    """The trace's launch calls by name; a ``cu*`` call that lies inside a
+    ``cuda*`` call of the same thread is that call's and is left out."""
+    calls = [e for e in trace if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e.get("name") in HOST_LAUNCHES]
+    runtime = collections.defaultdict(list)
+    for e in calls:
+        if e["cat"] == "cuda_runtime":
+            runtime[e.get("tid")].append((e["ts"], e["ts"] + e.get("dur", 0)))
+    out = collections.Counter()
+    for e in calls:
+        if e["cat"] == "cuda_driver" and any(
+                a <= e["ts"] <= b for a, b in runtime.get(e.get("tid"), ())):
+            continue
+        out[e["name"]] += 1
+    return dict(out)
+
+
 def build_workload(what: str, n: int, steps: int, device, epochs: int = 3,
-                   horizon: int = 32):
+                   horizon: int = 32, eager: bool = False):
     """(one call of the workload, env steps per call, calls in the window)."""
     env = TrifingerEnv(config={"num_instances": n, "command_mode": "torque",
                                "asymmetric_obs": what == "train", "sim": {"substeps": 2}},
                        device=device, verbose=False)
     static, params = env.static, env.params
     if what == "train":
+        from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
         from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state, train_iteration
 
         cfg = PPOConfig(minibatch_size=n, horizon=horizon)
         ts = init_train_state(cfg, static, params, 0)
-        return (lambda: train_iteration(cfg, static, params, ts)), cfg.horizon, epochs
+        epoch = train_iteration if eager or device.type != "cuda" else GraphedEpoch()
+        return (lambda: epoch(cfg, static, params, ts)), cfg.horizon, epochs
     if what == "physics":
         from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda
         from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
@@ -89,10 +118,14 @@ def build_workload(what: str, n: int, steps: int, device, epochs: int = 3,
             box["state"], _ = physics_step_cuda(box["state"], tau, scene, solver, 0.02)
 
         return physics, 1, steps
+    action = torch.zeros((n, static.action_dim), device=device)
+    if not eager:
+        env.seed(0)
+        env.reset()
+        return (lambda: env.step(action)), 1, steps
     gen = torch.Generator(device=device).manual_seed(0)
     state, _ = env_reset(static, params, *draw_init_randoms(static, gen, n, device))
     box = {"state": state}
-    action = torch.zeros((n, static.action_dim), device=device)
 
     def step():
         box["state"] = env_step(static, params, box["state"], action,
@@ -103,13 +136,13 @@ def build_workload(what: str, n: int, steps: int, device, epochs: int = 3,
 
 def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
                      trace_dir: str = "output/torch_trace", device="cuda:0", epochs: int = 3,
-                     horizon: int = 32) -> dict:
+                     horizon: int = 32, eager: bool = False) -> dict:
     """Warm up, profile the window, write the trace, print and return the
     figures."""
     device = resolve_device(device, cpu_hint="--device cpu")
     cuda = device.type == "cuda"
     call, env_steps_per_call, calls = build_workload(what, num_envs, steps, device, epochs,
-                                                     horizon)
+                                                     horizon, eager)
     sync = torch.cuda.synchronize if cuda else (lambda: None)
 
     def window() -> float:
@@ -126,7 +159,9 @@ def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
     with profile(activities=activities) as prof:
         wall_ms = window()
     os.makedirs(trace_dir, exist_ok=True)
-    path = os.path.join(trace_dir, f"{what}_{device.type}_{num_envs}.json")
+    mode = "graphed" if cuda and not eager and what != "physics" else "eager"
+    path = os.path.join(trace_dir, f"{what}_{device.type}_{num_envs}"
+                                   f"{'_eager' if eager else ''}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
@@ -148,25 +183,31 @@ def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
             per_op[e.name][0] += e.time_range.elapsed_us() / 1e3
             per_op[e.name][1] += 1
     env_steps = env_steps_per_call * calls
+    launched = host_launches(trace)
     out = {
-        "what": what, "device": str(device), "num_envs": num_envs, "env_steps": env_steps,
+        "what": what, "mode": mode, "device": str(device), "num_envs": num_envs,
+        "env_steps": env_steps,
         "wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
         "wall_ms_unprofiled": wall_unprofiled,
         "idle_share_unprofiled": 1.0 - busy_ms / wall_unprofiled,
         "launches_per_env_step": len(kernels) / env_steps,
+        "host_launches_per_env_step": sum(launched.values()) / env_steps,
+        "host_launches": launched,
         "ops_per_env_step": len(top_ops) / env_steps,
         "top": sorted(((name, ms, k) for name, (ms, k) in per_op.items()),
                       key=lambda x: -x[1])[:10],
         "trace": path,
     }
     where = smi() if cuda else "cpu"
-    print(f"{where} profile what={what} num_envs={num_envs} env_steps={env_steps} "
+    print(f"{where} profile what={what} mode={mode} num_envs={num_envs} env_steps={env_steps} "
           f"wall_ms={wall_ms:.3f} busy_ms={busy_ms:.3f} idle_share={out['idle_share']:.4f} "
           f"wall_ms_unprofiled={wall_unprofiled:.3f} "
           f"idle_share_unprofiled={out['idle_share_unprofiled']:.4f}", flush=True)
-    print(f"{where} profile what={what} launches_per_env_step={out['launches_per_env_step']:.1f} "
+    print(f"{where} profile what={what} mode={mode} "
+          f"launches_per_env_step={out['launches_per_env_step']:.1f} "
+          f"host_launches_per_env_step={out['host_launches_per_env_step']:.1f} "
           f"ops_per_env_step={out['ops_per_env_step']:.1f} kernels={len(kernels)} "
-          f"top_level_ops={len(top_ops)}", flush=True)
+          f"top_level_ops={len(top_ops)} host_launches={launched}", flush=True)
     for name, ms, k in out["top"]:
         print(f"{where} profile what={what} top ms={ms:.3f} calls={k} op={name[:120]}", flush=True)
     if cuda and not kernels:
@@ -186,9 +227,11 @@ def main(argv=None) -> int:
     ap.add_argument("--epochs", type=int, default=3, help="train: epochs in the window")
     ap.add_argument("--horizon", type=int, default=32, help="train: env steps per epoch")
     ap.add_argument("--device", default="cuda:0")
+    ap.add_argument("--eager", action="store_true",
+                    help="profile the eager env_step / train_iteration, not the captured ones")
     args = ap.parse_args(argv)
     profile_workload(args.what, args.num_envs, args.steps, args.trace_dir, args.device,
-                     args.epochs, args.horizon)
+                     args.epochs, args.horizon, args.eager)
     return 0
 
 

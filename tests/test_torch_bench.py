@@ -9,7 +9,8 @@ the repo's ``scripts/decompose_bench.py``).
   ``BENCH_ENGINE=reference`` steps the reference engine, an unknown engine
   raises the env's error, as in the reference.
 - ``decompose_bench`` has the reference's ``--what`` choices and prints its
-  keys for ``all`` and ``ppo``, plus the ``physics_reference_*`` pair;
+  keys for ``all`` and ``ppo``, plus the ``physics_reference_*`` pair and
+  the eager figures beside the compiled ones (``*_eager_*``);
   ``mdp_layer_ms`` is ``env_ms`` minus the default engine's physics time.
 """
 
@@ -119,21 +120,25 @@ def test_decompose_all():
     out = decompose_bench.main(SMALL + ["--num-envs", "8", "--what", "all", "--length", "1",
                                         "--substeps", "2"])
     assert set(decompose_bench.ENV_KEYS) == DECOMPOSE_ENV_KEYS
-    env_keys = DECOMPOSE_ENV_KEYS | {"physics_reference_ms", "physics_reference_steps_per_s",
-                                     "device", "kernel_launches"}
+    env_keys = DECOMPOSE_ENV_KEYS | set(decompose_bench.EAGER_ENV_KEYS) | {
+        "physics_reference_ms", "physics_reference_steps_per_s", "device", "kernel_launches"}
     assert set(out) == env_keys, set(out) ^ env_keys
     _finite_numbers(out)
     assert out["env_default_engine"] == "soa" and out["substeps"] == 2
-    for k in ("physics_soa_ms", "physics_pallas_ms", "physics_reference_ms", "env_ms"):
+    for k in ("physics_soa_ms", "physics_pallas_ms", "physics_reference_ms", "env_ms",
+              "env_eager_ms"):
         assert out[k] > 0 and out[k.replace("_ms", "_steps_per_s")] > 0, k
     assert out["mdp_layer_ms"] == round(out["env_ms"] - out["physics_soa_ms"], 4)
+    assert out["mdp_layer_eager_ms"] == round(out["env_eager_ms"] - out["physics_soa_ms"], 4)
 
 
 def test_decompose_ppo():
     out = decompose_bench.main(SMALL + ["--num-envs", "8", "--what", "ppo", "--horizon", "1"])
     assert set(decompose_bench.PPO_KEYS) == DECOMPOSE_PPO_KEYS
-    expected = DECOMPOSE_PPO_KEYS | {"device", "kernel_launches"}
+    expected = DECOMPOSE_PPO_KEYS | set(decompose_bench.EAGER_PPO_KEYS) | {
+        "device", "kernel_launches"}
     assert set(out) == expected, set(out) ^ expected
     _finite_numbers(out)
-    assert out["ppo_epoch_ms"] > 0 and out["ppo_rollout_ms"] > 0
+    for k in ("ppo_epoch_ms", "ppo_rollout_ms", "ppo_epoch_eager_ms", "ppo_rollout_eager_ms"):
+        assert out[k] > 0, k
     assert out["ppo_epoch_updates"] == 4  # mini_epochs x one minibatch of h x N

@@ -71,6 +71,9 @@ class _StubParams:
     def with_curriculum_level(self, level):
         return dataclasses.replace(self, curriculum_level=level)
 
+    def set_curriculum_level_(self, level):
+        self.curriculum_level = level
+
 
 def _metrics(epoch, kl=0.01, ep_return=None, cur=None):
     m = {
