@@ -47,9 +47,13 @@ Phases (each prints its own lines; any failure exits non-zero):
  7. replay of the shipped D4 policies (``leibnizgym_tpu_torch/resources/
     policies/*.npz``) through the port's eval, deterministic, level 1.0,
     1024 envs for one 750-step episode, each under the recipe it was trained
-    on: the per-goal solve rate of tests/test_shipped_policies.py must be
+    on, its policy the captured one (``GraphedPolicy``, 1 + 750 launches):
+    the per-goal solve rate of tests/test_shipped_policies.py must be
     >= 0.90 with >= 200 goals solved; the raw and censoring-corrected rates
     and the median solve time print beside the JAX package's recorded ones;
+    the same episode (the env's draws from the same state) through the eager
+    policy must record every step bitwise alike; ms per policy call,
+    graphed and eager;
  8. bfloat16 training: phase 5's preset with ``mixed_precision=True`` through
     ``Runner.train`` for a warm-up epoch and 3 timed ones at full widths.
     Checks: 1 + 32 * 4 kernel launches, finite losses, KL and lr in range,
@@ -57,15 +61,18 @@ Phases (each prints its own lines; any failure exits non-zero):
     and the trained towers' bfloat16 forward against their float32 forward
     on a seeded batch within ``BF16_REL``; then its epoch split beside phase
     5's float32 one;
- 9. the NaN path: phase 5's preset with ``nan_telemetry=True``: two clean
-    epochs (every ``nan/*`` key, every ``*_fin`` 1, ``kl_first_bad`` -1, the
-    loop at depth 1); then one env's cube is given a finite but degenerate
-    velocity (``DEGENERATE_LINVEL``) before epoch 3, through a hook on
-    ``Runner._train_iter``. Checks: the halt at epoch 3, ``nan_prev_ts.pt``
-    holding epoch 2's state, ``nan_replay`` naming step 0 and that env,
-    ``nan_microscope`` reproducing the blow-up on the card, and the kernel
-    and the plain version going non-finite at the same substep of its walk,
-    in the same fields;
+ 9. the NaN path: phase 5's preset with ``nan_telemetry=True``, its epoch
+    the captured one: two clean epochs (every ``nan/*`` key, every ``*_fin``
+    1, ``kl_first_bad`` -1, the loop at depth 1); then one env's cube is
+    given a finite but degenerate velocity (``DEGENERATE_LINVEL``) before
+    epoch 3, through a hook on ``Runner._train_iter``. Checks: an eager twin
+    of the run (``ppo.train_iteration``, the same injection) bitwise equal
+    epoch by epoch, NaNs in the same places; the halt at epoch 3,
+    ``nan_prev_ts.pt`` holding epoch 2's state, ``nan_replay`` naming step 0
+    and that env (the eager twin's dump the same), ``nan_microscope``
+    reproducing the blow-up on the card, and the kernel and the plain
+    version going non-finite at the same substep of its walk, in the same
+    fields;
 10. the tools path, at the reference scripts' defaults: ``trajectory_parity``
     dumps 64 envs x 100 steps (D1, torque, 2 substeps, 4 TGS iterations) on
     the card with ``--engine pallas`` (1 + 100 launches) and, from the same draws and actions, on the
@@ -81,10 +88,12 @@ Phases (each prints its own lines; any failure exits non-zero):
     first 64 envs (``CHAIN_TOL``), with ms per step.
 11. data parallelism (``leibnizgym_tpu_torch/parallel/``): (a) the D1 preset
     at 8192 envs for 3 epochs through ``Runner.train`` as the one rank of an
-    NCCL process group, between two of the same run without one: parameters,
-    lr, losses and KL bitwise equal, or within what the two plain runs
-    differ by; 2 x 4 x 32 + 3 all-reduces and no all-gather per epoch; the
-    epoch split of all three and the epoch's collectives timed alone. (b)
+    NCCL process group, graphed (its collectives captured), then that rank
+    eagerly, between two graphed runs without a group: parameters, Adam
+    state, lr, carry, losses and KL bitwise equal in all four; 2 x 4 x 32 +
+    3 all-reduces and no all-gather per epoch, the graphed epochs' counted
+    from the replays; the epoch split of all four and the epoch's
+    collectives timed alone. (b)
     two gloo ranks sharing cuda:0, 4096 envs each, 2 epochs (1 + 32 x 2
     launches per rank, every kernel launch of the reset and the first epoch
     recorded): each recorded launch of both ranks, joined to 8192 envs and
@@ -94,8 +103,10 @@ Phases (each prints its own lines; any failure exits non-zero):
     reference epoch's trajectory matches the reference update: its first
     step's gradient (GRAD1_RTOL's note) and the whole epoch (DP_WITHIN's
     note). (c) the dry run (two gloo ranks on the card, the flagship recipe
-    with 2 frames among its steps) while ``multihost_demo.py`` runs as two
-    more; (d) ``scaling_bench.py`` at 8192 envs per device on the card here;
+    with 2 frames among its steps; eager, as gloo's collectives run on the
+    host) while ``multihost_demo.py`` runs as two more; then both as one
+    NCCL rank each, graphed; (d) ``scaling_bench.py`` at 8192 envs per
+    device on the card here, graphed under NCCL;
     (e) ``replay_viewer.py`` with the shipped ``d4_best_curriculum`` policy,
     4 envs x 100 steps at level 1.0, each frame held to its env state, and
     the GIF where matplotlib and Pillow are installed.
@@ -119,16 +130,20 @@ Phases (each prints its own lines; any failure exits non-zero):
     rollout carry and env state): the D1 preset with a frame-ramped
     position tolerance over 5 epochs, a checkpoint of epoch 1 restored into
     both before the fourth; the D4 + DR preset over 3 epochs, the
-    success-gated level written before the third. Each graphed epoch
-    launches the kernel 32 times (its rollout graph's replay). Then the
-    D4 + DR env's captured reset and 12 steps against the eager functions
-    from the same draws and actions: outputs, states and env state bitwise
-    equal, a kept obs and a kept ``env.state`` unchanged by the next step,
-    one launch per call.
-The last two lines are the kernels' JSON record (times, flops, bytes and
-bound from phase 6; launches summed over the counted paths of phases 4-6
-and 8-13, graph replays counted by the launches they captured) and the
-device JSON line.
+    success-gated level written before the third; D1 with
+    ``nan_telemetry`` over 3 epochs; D1 with both Runners the one rank of
+    an NCCL group over 3 epochs, epoch 1's checkpoint restored before the
+    third. Each graphed epoch launches the kernel 32 times (its rollout
+    graph's replay). Then the D4 + DR Runner's captured play policy against
+    the eager one over 12 env steps, deterministic and with noise, and ms
+    per call of each; then the D4 + DR env's captured reset and 12 steps
+    against the eager functions from the same draws and actions: outputs,
+    states and env state bitwise equal, a kept obs and a kept
+    ``env.state`` unchanged by the next step, one launch per call.
+The last two lines are the kernels' JSON record (times, flops, bound and
+the plain version's time from phase 6; launches summed over the counted
+paths of phases 4-13, graph replays counted by the launches they captured)
+and the device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
 
@@ -155,7 +170,7 @@ try:
     from leibnizgym_tpu_torch.models import trifinger as tf_model
     from leibnizgym_tpu_torch.envs.trifinger import env as tenv
     from leibnizgym_tpu_torch.learning import ppo
-    from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
+    from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch, GraphedPolicy
     from leibnizgym_tpu_torch.learning.runner import Runner
     from leibnizgym_tpu_torch.models import networks as tnets
     from leibnizgym_tpu_torch import bench
@@ -864,12 +879,51 @@ REPLAYS = (
 )
 REPLAY_ENVS, REPLAY_STEPS = 1024, 750  # one full episode
 SOLVE_GATE, MIN_SOLVED = 0.90, 200  # tests/test_shipped_policies.py:71-80
+POLICY_CALLS = 200  # timed calls of each policy, graphed and eager
+
+
+def eager_policy(runner, deterministic: bool = True):
+    """The play policy as ``Runner.make_policy`` ran it before it was
+    captured: the clipped obs through the actor eagerly, the noise of the
+    global block's rows drawn after the forward, the action clipped."""
+    from leibnizgym_tpu_torch.parallel.mesh import shard_batch
+
+    cfg, actor_critic, shard = runner.ppo_cfg, runner.ts.actor_critic, runner.shard
+    n_draw = runner.num_envs_global
+
+    @torch.no_grad()
+    def policy(obs, generator=None):
+        mu, log_std, _ = actor_critic(torch.clamp(obs, -cfg.clip_obs, cfg.clip_obs))
+        action = mu
+        if not deterministic:
+            action = mu + torch.exp(log_std) * shard_batch(torch.randn(
+                (n_draw, mu.shape[1]), generator=generator, device=mu.device), shard)
+        return torch.clamp(action, -cfg.clip_actions, cfg.clip_actions)
+
+    return policy
+
+
+def policy_ms(runner, obs) -> dict:
+    """ms per call of the graphed and the eager policy on ``obs``, in turns
+    (CUDA events around POLICY_CALLS calls, the graph captured before)."""
+    graphed, eager = runner.make_policy(True, 1.0), eager_policy(runner, True)
+    graphed(obs)
+    graphed(obs)
+    eager(obs)
+    out = {"graphed": [], "eager": []}
+    for _ in range(2):
+        for mode, fn in (("graphed", graphed), ("eager", eager)):
+            out[mode].append(cuda_ms(lambda: fn(obs), POLICY_CALLS))
+    return {k: min(v) for k, v in out.items()}
 
 
 def phase_replay(dev):
     """Each shipped policy, deterministic, at level 1.0, for one episode
-    through the port's eval; returns [(name, window rate, stats)]."""
-    results = []
+    through the port's eval (its policy the graphed one), then the same
+    episode with the eager policy: every step's record bitwise equal.
+    Returns {"launches": the graphed replays' kernel launches, "results":
+    [(name, window rate, stats)]}."""
+    results, total = [], 0
     for name, gym, overrides, (j_raw, j_cor, j_med) in REPLAYS:
         cfg = update_cfg(parse_cli([f"gym={gym}", f"args.num_envs={REPLAY_ENVS}",
                                     "args.play=True", f"args.seed={SEED}", *overrides]))
@@ -879,15 +933,46 @@ def phase_replay(dev):
             runner.reset()
             runner.restore(os.path.join(POLICY_DIR, name + ".npz"))
             st = runner.static
+            check(isinstance(runner.make_policy(True, 1.0), GraphedPolicy),
+                  f"{name}: the play policy is not the graphed one")
+            # the episode through the eager policy first (it also captures
+            # the env's graphs), then, counted, the same episode (the env's
+            # draws from the same state) through the port's policy
+            env_draws = runner.env.generator.get_state()
+            make = runner.make_policy
+
+            def make_eager(deterministic=True, curriculum_level=None):
+                make(deterministic, curriculum_level)  # sets the play level
+                return eager_policy(runner, deterministic)
+
+            runner.make_policy = make_eager
+            t0 = time.perf_counter()
+            eager_record = record_goals(runner, REPLAY_STEPS, level=1.0, deterministic=True,
+                                        seed=SEED)
+            eager_wall_s = time.perf_counter() - t0
+            del runner.make_policy
+            runner.env.generator.set_state(env_draws)
             cuda_engine.launch_count = 0
             t0 = time.perf_counter()
             record = record_goals(runner, REPLAY_STEPS, level=1.0, deterministic=True, seed=SEED)
             wall_s = time.perf_counter() - t0
             launches = cuda_engine.launch_count
+            same = all(np.array_equal(a, b) for a, b in zip(record, eager_record))
+            first = next((t for t in range(REPLAY_STEPS)
+                          if not all(np.array_equal(a[t], b[t])
+                                     for a, b in zip(record, eager_record))), None)
+            ms = policy_ms(runner, runner.wrap_env().reset())
             if runner.writer is not None:
                 runner.writer.close()
+        print(f"{smi()} replay {name} graphed_vs_eager_policy records_equal={same} "
+              f"first_unequal_step={first} wall_s graphed={wall_s:.3f} eager={eager_wall_s:.3f} "
+              f"policy_ms_per_call graphed={ms['graphed']:.4f} eager={ms['eager']:.4f} "
+              f"envs={REPLAY_ENVS}", flush=True)
+        check(same, f"{name}: the graphed policy's episode differs from the eager one's "
+              f"from step {first}")
         check(launches == 1 + REPLAY_STEPS, f"{name}: launch_count {launches} != "
               f"{1 + REPLAY_STEPS}")
+        total += launches
         stats = goal_solve_stats(*record, st.episode_length, st.position_tolerance,
                                  st.orientation_tolerance)
         solved, attempts, rate = window_solve_rate(record[0])
@@ -902,7 +987,7 @@ def phase_replay(dev):
         check(solved >= MIN_SOLVED and rate >= SOLVE_GATE,
               f"{name}: per-goal solve {rate:.4f} ({solved}/{attempts}) below {SOLVE_GATE}")
         results.append((name, rate, stats))
-    return results
+    return {"launches": total, "results": results}
 
 
 # ---------------------------------------------------------------------------
@@ -1030,31 +1115,69 @@ NAN_KEYS = ("obs_fin", "obs_max", "states_fin", "states_max", "act_fin", "act_ma
             "kl_mb_fin", "kl_first_bad", "params_fin")
 
 
-def phase_nan(dev, num_envs: int = 8192):
-    """Phase 5's preset with nan_telemetry; the injected blow-up, the halt,
-    the dump, the replay and the microscope on the card."""
-    cfg = d1_config(num_envs, nan_telemetry=True)
+def same_bits(a, b) -> bool:
+    """Bitwise equal, a NaN equal to a NaN in the same place."""
+    if not torch.is_tensor(a):
+        return a == b or (a != a and b != b)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        torch.isnan(a), torch.isnan(b)) and torch.equal(a[~torch.isnan(a)], b[~torch.isnan(b)])
+
+
+def nan_run(cfg, dev, logdir: str, graphed: bool):
+    """Phase 9's run: the D1 preset with nan_telemetry through Runner.train
+    (its own epoch, the graphed one on the card, or ``ppo.train_iteration``),
+    the degenerate env injected after epoch 2. Returns the runner, each
+    epoch's metrics and epoch 2's actor weights."""
     history, snapshot = [], {}
+    runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                    seed=SEED, device=dev)
+    inner = runner._train_iter if graphed else ppo.train_iteration
+    check(not graphed or isinstance(inner, GraphedEpoch),
+          f"phase 9: the nan_telemetry Runner's epoch is {inner!r}, not the graphed one")
+
+    def train_iter(pcfg, static, env_params, ts):
+        metrics = inner(pcfg, static, env_params, ts)
+        history.append(metrics)
+        if ts.epoch == 2:
+            snapshot["ac"] = {k: v.clone() for k, v in ts.actor_critic.state_dict().items()}
+            ts.carry.env_state.physics.cube_linvel[NAN_ENV] = DEGENERATE_LINVEL
+        return metrics
+
+    runner._train_iter = train_iter
+    runner.reset()
+    runner.train(max_epochs=6)
+    torch.cuda.synchronize()
+    if runner.writer is not None:
+        runner.writer.close()
+    return runner, history, snapshot
+
+
+def phase_nan(dev, num_envs: int = 8192):
+    """Phase 5's preset with nan_telemetry, graphed: the injected blow-up,
+    the halt, the dump, the replay and the microscope on the card; an eager
+    twin from the same seed, held bitwise equal epoch by epoch."""
+    cfg = d1_config(num_envs, nan_telemetry=True)
     with tempfile.TemporaryDirectory() as logdir:
-        runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
-                        seed=SEED, device=dev)
+        t0 = time.perf_counter()
+        eager, eager_history, _ = nan_run(cfg, dev, os.path.join(logdir, "eager"), False)
+        eager_s = time.perf_counter() - t0
+        cuda_engine.launch_count = 0
+        t0 = time.perf_counter()
+        runner, history, snapshot = nan_run(cfg, dev, os.path.join(logdir, "graphed"), True)
+        graphed_s = time.perf_counter() - t0
+        train_launches = cuda_engine.launch_count
         check_d1_widths("phase 9", runner)
         check(runner.ppo_cfg.host_pipeline_depth > 1, "phase 9 should configure depth > 1")
-
-        def train_iter(pcfg, static, env_params, ts):
-            metrics = ppo.train_iteration(pcfg, static, env_params, ts)
-            history.append(metrics)
-            if ts.epoch == 2:
-                snapshot["ac"] = {k: v.clone() for k, v in ts.actor_critic.state_dict().items()}
-                ts.carry.env_state.physics.cube_linvel[NAN_ENV] = DEGENERATE_LINVEL
-            return metrics
-
-        runner._train_iter = train_iter
-        cuda_engine.launch_count = 0
-        runner.reset()
-        runner.train(max_epochs=6)
-        torch.cuda.synchronize()
-        train_launches = cuda_engine.launch_count
+        unequal = [(e, k) for e, (me, mg) in enumerate(zip(eager_history, history), 1)
+                   for k in sorted(set(me) | set(mg))
+                   if k not in me or k not in mg or not same_bits(me[k], mg[k])]
+        state = unequal_bits(learner_state(eager), learner_state(runner))
+        print(f"{smi()} nan graphed_vs_eager epochs={len(history)},{len(eager_history)} "
+              f"metrics_unequal={unequal[:6]} state_unequal={state[:6]} "
+              f"train_s graphed={graphed_s:.3f} eager={eager_s:.3f}", flush=True)
+        check(len(history) == len(eager_history) and not unequal and not state,
+              f"nan: the graphed nan_telemetry epochs differ from the eager ones: "
+              f"{unequal[:6]} {state[:6]}")
         h = runner.ppo_cfg.horizon
         check(len(history) == 3, f"nan: {len(history)} epochs dispatched, not 3 (depth 1, "
               "halt at epoch 3)")
@@ -1089,14 +1212,19 @@ def phase_nan(dev, num_envs: int = 8192):
         same_substep = (seen is not None and first.get("kernel") is not None
                         and first.get("kernel") == first.get("plain"))
         same_fields = same_substep and fields.get("kernel") == fields.get("plain")
+        eager_found = nan_replay.replay(eager.logdir, steps=4,
+                                        out=os.path.join(logdir, "eager.npz"), device=dev)
         print(f"nan halt_epoch={halt['epoch']} dump_epoch={dump['epoch']} replay={found} "
+              f"eager_replay={eager_found} "
               f"microscope_first_bad_substep={first} nonfinite_fields={fields} "
               f"tools_launches={tools_launches} same_substep={same_substep} "
               f"same_fields={same_fields}", flush=True)
         check(same_fields, "nan microscope: the kernel and the plain version differ on the "
               "blow-up (substep or fields)")
-        if runner.writer is not None:
-            runner.writer.close()
+        check(eager_found is not None and found is not None
+              and (eager_found["step"], eager_found["env_index"])
+              == (found["step"], found["env_index"]),
+              f"nan: the eager run's dump replays to {eager_found}, the graphed one's to {found}")
     return {"launches": train_launches + tools_launches}
 
 
@@ -1298,9 +1426,11 @@ VIEW_ENVS, VIEW_STEPS, VIEW_POLICY = 4, 100, "d4_best_curriculum"
 VIEW_TOL = 1e-6
 
 
-def dp_run(cfg, dev, tag: str) -> dict:
+def dp_run(cfg, dev, tag: str, graphed: bool = True) -> dict:
     """The D1 preset through Runner.train for DP_EPOCHS epochs, as one rank
-    of the process group where there is one: its learner after the run, its
+    of the process group where there is one, with the Runner's own epoch
+    (which must be the graphed one) or, with ``graphed`` False,
+    ``ppo.train_iteration``: its learner and carry after the run, its
     per-epoch losses, KL and lr, the collectives of each epoch, the kernel
     launches and the epoch split."""
     marks, history, counts = [], [], []
@@ -1308,7 +1438,8 @@ def dp_run(cfg, dev, tag: str) -> dict:
         runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
                         seed=SEED, device=dev)
         check_d1_widths(tag, runner)
-        marked = marked_train_iter(history, marks)
+        marked = (graphed_train_iter(tag, runner, history, marks) if graphed
+                  else marked_train_iter(history, marks))
 
         def train_iter(*args):
             if runner.shard is not None:
@@ -1328,10 +1459,7 @@ def dp_run(cfg, dev, tag: str) -> dict:
     h, n = runner.ppo_cfg.horizon, runner.static.num_envs
     check(launches == 1 + h * DP_EPOCHS, f"{tag} launch_count {launches} != {1 + h * DP_EPOCHS}")
     rows = check_epoch_metrics(tag, history, DP_EPOCHS, h, n)
-    learner = {f"{net}.{k}": v.detach().clone() for net, mod in
-               (("ac", runner.ts.actor_critic), ("cv", runner.ts.central_value))
-               for k, v in mod.state_dict().items()}
-    learner["lr"] = runner.ts.lr.clone()
+    learner = {k: v.detach().clone() for k, v in learner_state(runner).items()}
     for e, r in enumerate(rows):
         for k in ("losses/total", "losses/a_loss", "losses/c_loss", "losses/cv_loss", "info/kl"):
             learner[f"epoch{e + 1}/{k}"] = torch.tensor(r[k], dtype=torch.float64)
@@ -1387,39 +1515,44 @@ def phase_parallel(dev, num_envs: int = 8192):
 
     launches = {}
     cfg = d1_config(num_envs)
-    # (a) the same seed and preset without a process group (before and
-    # after: the run-to-run spread, and the host's drift) and as the one
-    # rank of an NCCL group
+    # (a) the same seed and preset, graphed, without a process group (before
+    # and after: the host's drift) and as the one rank of an NCCL group, its
+    # collectives captured; then that rank eagerly
     plain = [dp_run(cfg, dev, "dp_plain_1")]
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
         try:
             grp = dp_run(cfg, dev, "dp_nccl_w1")
+            eager = dp_run(cfg, dev, "dp_nccl_w1_eager", graphed=False)
             coll = time_collectives(dev, dict(grp["history"][-1]), num_envs)
         finally:
             dist.destroy_process_group()
     plain.append(dp_run(cfg, dev, "dp_plain_2"))
     launches["a"] = grp["launches"]
-    spread, diff = learner_diff(plain[1]["learner"], plain[0]["learner"]), learner_diff(
-        grp["learner"], plain[0]["learner"])
-    worse = [k for k in diff if diff[k] > spread[k]]
-    bitwise = all(v == 0.0 for v in diff.values())
-    print(f"dp (a) nccl_w1_vs_plain max_abs={max(diff.values()):.3e} "
-          f"plain_vs_plain max_abs={max(spread.values()):.3e} bitwise={bitwise} "
-          f"beyond_plain_spread={worse}", flush=True)
-    check(not worse, f"dp (a): NCCL W=1 differs from the plain run beyond its spread: {worse}")
+    diffs = {"nccl_w1_vs_plain": learner_diff(grp["learner"], plain[0]["learner"]),
+             "nccl_w1_vs_eager": learner_diff(grp["learner"], eager["learner"]),
+             "plain_vs_plain": learner_diff(plain[1]["learner"], plain[0]["learner"])}
+    unequal_keys = {name: sorted(k for k, v in d.items() if v != 0.0)
+                    for name, d in diffs.items()}
+    print("dp (a) " + " ".join(f"{name} bitwise={not keys} max_abs={max(diffs[name].values()):.3e} "
+                               f"unequal={keys[:4]}" for name, keys in unequal_keys.items()),
+          flush=True)
+    for name, keys in unequal_keys.items():
+        check(not keys, f"dp (a): {name} not bitwise equal: {keys[:6]}")
     steps = 2 * 4 * 32  # (4 actor + 4 central-value mini-epochs) x 32 minibatches
-    for e, c in enumerate(grp["counts"], 1):
-        check(c.get("all_reduce") == steps + 3 and not c.get("all_gather"),
-              f"dp (a) epoch {e} collectives {c} != {steps + 3} all-reduces")
-    print(f"{smi()} dp (a) collectives_per_epoch={grp['counts'][-1]} "
-          f"update_ms plain={plain[0]['split']['update']:.3f},{plain[1]['split']['update']:.3f} "
-          f"nccl_w1={grp['split']['update']:.3f} epoch_ms plain={plain[0]['split']['epoch']:.3f},"
-          f"{plain[1]['split']['epoch']:.3f} nccl_w1={grp['split']['epoch']:.3f} "
-          f"collectives_alone device_ms={coll['device_ms']:.3f} host_ms={coll['host_ms']:.3f} "
-          f"all_reduce={coll['all_reduce']} ac_bytes={coll['ac_bytes']} "
-          f"cv_bytes={coll['cv_bytes']}", flush=True)
+    for run in (grp, eager):
+        for e, c in enumerate(run["counts"], 1):
+            check(c.get("all_reduce") == steps + 3 and not c.get("all_gather"),
+                  f"dp (a) epoch {e} collectives {c} != {steps + 3} all-reduces")
+    print(f"{smi()} dp (a) collectives_per_epoch graphed={grp['counts']} "
+          f"eager={eager['counts'][-1]} "
+          + " ".join(f"{part}_ms plain={plain[0]['split'][part]:.3f},"
+                     f"{plain[1]['split'][part]:.3f} nccl_w1={grp['split'][part]:.3f} "
+                     f"nccl_w1_eager={eager['split'][part]:.3f}" for part in ("epoch", "update"))
+          + f" collectives_alone device_ms={coll['device_ms']:.3f} "
+          f"host_ms={coll['host_ms']:.3f} all_reduce={coll['all_reduce']} "
+          f"ac_bytes={coll['ac_bytes']} cv_bytes={coll['cv_bytes']}", flush=True)
 
     with tempfile.TemporaryDirectory() as tmp:
         launches["b"] = dp_ranks(dev, cfg, num_envs, tmp, world=2)["launches"]
@@ -1686,7 +1819,8 @@ def rank_worker(path: str, epochs: int, logdir: str, num_envs: int, device: str,
 
     def first_rollout(*args, **kw):  # the free run's first epoch, for (b)'s report
         carry, traj = rollout(*args, **kw)
-        first.setdefault("traj", {k: getattr(traj, k).cpu() for k in ("obs", "action")})
+        if "traj" not in first:  # the warm-up epoch's; later ones may be captures
+            first["traj"] = {k: getattr(traj, k).cpu() for k in ("obs", "action")}
         return carry, traj
 
     runner._train_iter = train_iter
@@ -1729,40 +1863,55 @@ def rank_worker(path: str, epochs: int, logdir: str, num_envs: int, device: str,
             "learner": _cpu(runner._ckpt_payload()), "grads": grads}
 
 
-def dp_dryrun_and_demo(dev, tmp) -> int:
-    """(c): the dry run (two gloo ranks on cuda:0, tiny shapes) while
-    ``multihost_demo.py`` runs as two more gloo processes on the card."""
-    from leibnizgym_tpu_torch.graft_entry import dryrun_multichip
-
-    env = dict(os.environ, COORD_ADDR=f"file://{tmp}/demo_rendezvous", ENVS_PER_DEVICE="64",
+def demo_procs(dev, tmp: str, tag: str, world: int, backend: str) -> list:
+    """``multihost_demo.py`` as ``world`` ``backend`` processes on ``dev``."""
+    env = dict(os.environ, COORD_ADDR=f"file://{tmp}/{tag}_rendezvous", ENVS_PER_DEVICE="64",
                PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    demo = [subprocess.Popen([sys.executable, "-m", "leibnizgym_tpu_torch.scripts.multihost_demo",
-                              str(r), "2", "--backend", "gloo", "--device", str(dev)],
+    return [subprocess.Popen([sys.executable, "-m", "leibnizgym_tpu_torch.scripts.multihost_demo",
+                              str(r), str(world), "--backend", backend, "--device", str(dev)],
                              cwd=ROOT, env=env,
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(2)]
-    try:
-        t0 = time.perf_counter()
-        dry = dryrun_multichip(2, str(dev))
-        dry_s = time.perf_counter() - t0
-        outs = [p.communicate(timeout=600)[0] for p in demo]
-    finally:
-        for p in demo:
-            p.kill()
-    # per rank: reset + step, then two dry-run epochs of 1 + 4 launches
-    want = 2 + 2 * (1 + 4)
-    for r, out in enumerate(dry):
-        check(out["kernel_launches"] == want and out["obs_finite"]
-              and np.isfinite(out["flagship_loss"]) and out["flagship_obs_width"] == 2 * 89,
-              f"dp (c) dry run rank {r}: {out}")
-    lines = [line for out in outs for line in out.splitlines() if "train steps OK" in line]
-    losses = {line.split("loss", 1)[1] for line in lines}
-    check(all(p.returncode == 0 for p in demo) and len(lines) == 2 and len(losses) == 1,
-          f"dp (c) multihost demo: {[o[-1500:] for o in outs]}")
-    print(f"dp (c) dryrun ranks=2 launches={[o['kernel_launches'] for o in dry]} "
-          f"loss={dry[0]['loss']:.6f} flagship_loss={dry[0]['flagship_loss']:.6f} "
-          f"seconds={dry_s:.1f} demo={lines}", flush=True)
-    return sum(o["kernel_launches"] for o in dry)
+            for r in range(world)]
+
+
+def dp_dryrun_and_demo(dev, tmp) -> int:
+    """(c): the dry run as two gloo ranks on cuda:0 (tiny shapes; their
+    epochs eager, as gloo's collectives run on the host) while
+    ``multihost_demo.py`` runs as two more gloo processes on the card; then
+    the dry run as one NCCL rank, its epochs graphed, while the demo runs
+    as one more, graphed too."""
+    from leibnizgym_tpu_torch.graft_entry import dryrun_multichip
+
+    runs = {}
+    for tag, world, backend, device in (("gloo", 2, "gloo", str(dev)), ("nccl", 1, "nccl", "cuda")):
+        demo = demo_procs(dev, tmp, tag, world, backend)
+        try:
+            t0 = time.perf_counter()
+            dry = dryrun_multichip(world, device)
+            dry_s = time.perf_counter() - t0
+            outs = [p.communicate(timeout=600)[0] for p in demo]
+        finally:
+            for p in demo:
+                p.kill()
+        # per rank: reset + step, then two dry-run epochs of 1 + 4 launches
+        want = 2 + 2 * (1 + 4)
+        for r, out in enumerate(dry):
+            check(out["kernel_launches"] == want and out["obs_finite"]
+                  and np.isfinite(out["flagship_loss"]) and out["flagship_obs_width"] == 2 * 89
+                  and out["graphed"] == (backend == "nccl"),
+                  f"dp (c) dry run {tag} rank {r}: {out}")
+        lines = [line for out in outs for line in out.splitlines() if "train steps OK" in line]
+        losses = {line.split("loss", 1)[1] for line in lines}
+        eager_said = sum("runs eagerly" in out for out in outs)
+        check(all(p.returncode == 0 for p in demo) and len(lines) == world and len(losses) == 1
+              and eager_said == (world if backend == "gloo" else 0),
+              f"dp (c) multihost demo {tag}: {[o[-1500:] for o in outs]}")
+        print(f"dp (c) {tag} dryrun ranks={world} graphed={[o['graphed'] for o in dry]} "
+              f"launches={[o['kernel_launches'] for o in dry]} "
+              f"loss={dry[0]['loss']:.6f} flagship_loss={dry[0]['flagship_loss']:.6f} "
+              f"seconds={dry_s:.1f} demo={lines} demo_eager_lines={eager_said}", flush=True)
+        runs[tag] = sum(o["kernel_launches"] for o in dry)
+    return sum(runs.values())
 
 
 def dp_scaling_bench(dev, num_envs: int) -> int:
@@ -2133,6 +2282,11 @@ def learner_state(runner) -> dict:
     return out
 
 
+def unequal_bits(a: dict, b: dict) -> list:
+    """The keys of the entries that are not bitwise equal (``same_bits``)."""
+    return [k for k in a if not same_bits(a[k], b[k])]
+
+
 def unequal(a: dict, b: dict) -> dict:
     """{key: max |a - b|} of the entries that are not bitwise equal."""
     out = {}
@@ -2250,8 +2404,48 @@ def graph_env_step(dev, num_envs: int) -> int:
     return launches // 2
 
 
+def graph_policy(dev, num_envs: int) -> int:
+    """The D4 + DR Runner's captured play policy against the eager one over
+    GRAPH_ENV_STEPS env steps, deterministic and with noise drawn from twin
+    generators: bitwise equal actions, the env stepped by the graphed ones;
+    then ms per call of each. Returns the env's kernel launches."""
+    cfg = d4_config(num_envs)
+    with tempfile.TemporaryDirectory() as logdir:
+        runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                        seed=SEED, device=dev)
+        runner.reset()
+        env = runner.wrap_env()
+        cuda_engine.launch_count = 0
+        bad = []
+        for deterministic in (True, False):
+            graphed = runner.make_policy(deterministic)
+            check(isinstance(graphed, GraphedPolicy), "graphs: the play policy is not graphed")
+            eager = eager_policy(runner, deterministic)
+            g_graph = torch.Generator(device=dev).manual_seed(SEED)
+            g_eager = torch.Generator(device=dev).manual_seed(SEED)
+            obs = env.reset()
+            for t in range(GRAPH_ENV_STEPS):
+                action = graphed(obs, g_graph)
+                if not torch.equal(action, eager(obs, g_eager)):
+                    bad.append((deterministic, t))
+                obs, _, _, _ = env.step(action)
+        launches = cuda_engine.launch_count
+        ms = policy_ms(runner, obs)
+        if runner.writer is not None:
+            runner.writer.close()
+    print(f"{smi()} graphs policy envs={num_envs} steps={GRAPH_ENV_STEPS} unequal={bad} "
+          f"launches={launches} policy_ms_per_call graphed={ms['graphed']:.4f} "
+          f"eager={ms['eager']:.4f}", flush=True)
+    check(not bad, f"graphs: the captured policy differs from the eager one at {bad}")
+    check(launches == 2 * (1 + GRAPH_ENV_STEPS), f"graphs policy launch_count {launches}")
+    return launches
+
+
 def phase_graphs(dev, num_envs: int = 8192) -> dict:
-    """Phase 13: the captured epoch and env step against the eager ones."""
+    """Phase 13: the captured epoch, play policy and env step against the
+    eager ones."""
+    import torch.distributed as dist
+
     d1 = d1_config(num_envs)
     term = d1["gym"]["termination_conditions"]["success"]
     term.update(position_tolerance_init=RAMP_INIT, tolerance_anneal_frames=RAMP_FRAMES)
@@ -2276,6 +2470,20 @@ def phase_graphs(dev, num_envs: int = 8192) -> dict:
 
         launches["d4"] = graph_pair("d4_dr", d4_config(num_envs), dev,
                                     os.path.join(logdir, "d4"), [None, None, level])
+        # nan_telemetry (the loop at depth 1, the pre-epoch clone each epoch)
+        launches["d1_nan"] = graph_pair("d1_nan", d1_config(num_envs, nan_telemetry=True), dev,
+                                        os.path.join(logdir, "d1_nan"), [None, None, None])
+        # both Runners the one rank of an NCCL group, the graphed one's
+        # collectives captured; epoch 1's checkpoint restored before the third
+        dist.init_process_group("nccl", init_method=f"file://{logdir}/rendezvous",
+                                world_size=1, rank=0)
+        try:
+            launches["d1_nccl"] = graph_pair("d1_nccl", d1_config(num_envs), dev,
+                                             os.path.join(logdir, "d1_nccl"),
+                                             [None, keep, restore])
+        finally:
+            dist.destroy_process_group()
+    launches["policy"] = graph_policy(dev, num_envs)
     launches["env"] = graph_env_step(dev, num_envs)
     print("graphs launches " + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
     return {"launches": sum(launches.values())}
@@ -2320,7 +2528,7 @@ def main() -> int:
     records = {"slice": timed("phase 4", phase_slice, dev),
                "train": timed("phase 5", phase_training, dev),
                "d4": timed("phase 6", phase_d4, dev)}
-    timed("phase 7", phase_replay, dev)
+    replay = timed("phase 7", phase_replay, dev)
     bf16 = timed("phase 8", phase_bf16, dev, records["train"].pop("split"))
     nan = timed("phase 9", phase_nan, dev)
     tools = timed("phase 10", phase_tools, dev)
@@ -2333,9 +2541,10 @@ def main() -> int:
         return 1
     print(smi(), flush=True)
     # phase 6 gives the times and the bound; the launches are every counted
-    # path's (phases 4-6 and 8-13); the error is the worst of phases 4-6
+    # path's (phases 4-13); the error is the worst of phases 4-6
     paths = {"phase 4": records["slice"]["launches"], "phase 5": records["train"]["launches"],
-             "phase 6": records["d4"]["launches"], "phase 8": bf16["launches"],
+             "phase 6": records["d4"]["launches"], "phase 7": replay["launches"],
+             "phase 8": bf16["launches"],
              "phase 9": nan["launches"], "phase 10": tools["launches"],
              "phase 11": dp["launches"], "phase 12": engines["launches"],
              "phase 13": graphs["launches"]}

@@ -3,6 +3,7 @@ a forward step of the flagship workload, and the multi-process dry run.
 
     python -m leibnizgym_tpu_torch.graft_entry          # entry() once on the card
     python -c "from leibnizgym_tpu_torch.graft_entry import dryrun_multichip; dryrun_multichip(2)"
+    python -c "from leibnizgym_tpu_torch.graft_entry import dryrun_multichip; dryrun_multichip(2, 'cuda')"
     python -c "from leibnizgym_tpu_torch.graft_entry import dryrun_multichip; dryrun_multichip(2, 'cpu')"
 """
 
@@ -37,9 +38,10 @@ def entry(device="cuda:0"):
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda:0") -> list:
-    """The sharded env step and training steps in ``n_devices`` gloo
-    processes on tiny shapes (``parallel/dryrun.py``), all on ``device``
-    (gloo ranks may share one card); ``device="cpu"`` runs it on the CPU."""
+    """The sharded env step and training steps in ``n_devices`` processes on
+    tiny shapes (``parallel/dryrun.py``): gloo ones all on ``device`` (gloo
+    ranks may share one card; ``device="cpu"`` runs it on the CPU), or, with
+    ``device="cuda"``, NCCL ones each on its own card, graphed."""
     from leibnizgym_tpu_torch.parallel.dryrun import run_dryrun
 
     return run_dryrun(n_devices, device)

@@ -749,20 +749,25 @@ def minibatch_sources(cfg: PPOConfig, traj: Trajectory, advs: torch.Tensor,
 
 def finish_epoch(cfg: PPOConfig, ts: TrainState, traj: Trajectory,
                  per_step: Sequence[torch.Tensor], cv_losses: Optional[torch.Tensor],
-                 frames: int, clone: bool = False) -> Dict[str, torch.Tensor]:
-    """Count the epoch on the host (``ts.epoch``, ``ts.frame`` += ``frames``)
-    and assemble its metrics from the trajectory, the actor-critic steps'
-    terms (``per_step``: one (steps,) tensor per term, in
-    ``actor_critic_step``'s order) and the central-value losses (None
-    without a central value). ``clone`` copies the tensors passed through
-    unchanged, for a caller whose buffers the next epoch overwrites."""
+                 advs: torch.Tensor, returns: torch.Tensor,
+                 clone: bool = False) -> Dict[str, torch.Tensor]:
+    """Count the epoch on the host (``ts.epoch``, and ``ts.frame`` by the
+    global batch) and assemble its metrics from the trajectory, the
+    actor-critic steps' terms (``per_step``: one (steps,) tensor per term,
+    in ``actor_critic_step``'s order) and the central-value losses (None
+    without a central value); then, with ``nan_telemetry``, the ``nan/*``
+    metrics of the trajectory, the advantages and returns and the steps'
+    KL and gradient norms, and under ``ts.shard`` every metric reduced over
+    the ranks. ``clone`` copies the tensors passed through unchanged, for a
+    caller whose buffers the next epoch overwrites."""
+    h, n = traj.value.shape
     ts.epoch += 1
-    ts.frame += frames
+    ts.frame += h * (ts.shard.n_global if ts.shard is not None else n)
     keep = (lambda x: x.clone()) if clone else (lambda x: x)
     total, a_loss, c_loss, entropy, kl = (x.mean() for x in per_step[:5])
     cv_loss = cv_losses.mean() if cv_losses is not None else traj.value.new_zeros(())
     fin_n = traj.fin_n
-    return {
+    metrics = {
         "losses/total": total,
         "losses/a_loss": a_loss,
         "losses/c_loss": c_loss,
@@ -782,6 +787,12 @@ def finish_epoch(cfg: PPOConfig, ts: TrainState, traj: Trajectory,
         "episodes/finished_n": keep(fin_n),
         **{k: keep(v) for k, v in traj.info.items()},
     }
+    if cfg.nan_telemetry:
+        metrics.update(nan_metrics(traj, ts, advs, returns, kl_trace=per_step[4],
+                                   grad_norms=per_step[5]))
+    if ts.shard is not None:
+        metrics = reduce_metrics(metrics, ts.shard)
+    return metrics
 
 
 def update(cfg: PPOConfig, ts: TrainState, traj: Trajectory, last_value: torch.Tensor,
@@ -822,13 +833,7 @@ def update(cfg: PPOConfig, ts: TrainState, traj: Trajectory, last_value: torch.T
         on_phase("update")
 
     per_step = [torch.stack(x) for x in zip(*ac_terms)]
-    metrics = finish_epoch(cfg, ts, traj, per_step, cv_losses, h * n_all)
-    if cfg.nan_telemetry:
-        metrics.update(nan_metrics(traj, ts, advs, returns, kl_trace=per_step[4],
-                                   grad_norms=per_step[5]))
-    if shard is not None:
-        metrics = reduce_metrics(metrics, shard)
-    return metrics
+    return finish_epoch(cfg, ts, traj, per_step, cv_losses, advs, returns)
 
 
 def _fin(x: torch.Tensor) -> torch.Tensor:

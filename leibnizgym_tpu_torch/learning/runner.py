@@ -37,14 +37,15 @@ every ``play`` step.
 
 On a CUDA device ``train`` runs each epoch as CUDA-graph replays
 (``learning/graphs.py``, the counterpart of the reference's
-``jax.jit(train_iteration)``); the epoch and frame bookkeeping, the metrics
-pipeline and the curriculum controller stay on the host. The controller
-writes the level into the env params' tensor in place, a restore writes into
-the learner's tensors in place, and the pipeline's pending metrics and
-snapshots are copies. Three paths stay eager and say so in one printed
-line: the data-parallel epoch (its NCCL collectives are not captured),
-``nan_telemetry``, and the play policy of ``make_policy`` (the env it steps
-is captured).
+``jax.jit(train_iteration)``), alone, as a rank of an NCCL group (its
+collectives captured) and with ``nan_telemetry``; the epoch and frame
+bookkeeping, the metrics pipeline and the curriculum controller stay on the
+host. The controller writes the level into the env params' tensor in place,
+a restore writes into the learner's tensors in place, and the pipeline's
+pending metrics and snapshots are copies. The play policy of
+``make_policy`` replays a graph too (the reference jits it), beside the
+env's captured step. Under a gloo group on a card the epoch runs eagerly and
+says so: gloo runs its collectives on the host.
 
 With ``nan_telemetry`` the loop runs at depth 1 and keeps the whole train
 state before each epoch (``nan_dump_payload``: the checkpoint payload, the
@@ -77,10 +78,9 @@ from leibnizgym_tpu_torch.learning.ppo import (
     TrainState,
     init_train_state,
     make_optimizers,
-    train_iteration,
 )
-from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
-from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, data_shard, shard_batch
+from leibnizgym_tpu_torch.learning.graphs import GraphedPolicy, epoch_for
+from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, data_shard
 
 
 def resolve_device(name) -> torch.device:
@@ -181,16 +181,7 @@ class Runner:
             print_info(f"Runner: {num_actors} envs over {self.shard.world} ranks "
                        f"({dist.get_backend()}), {self.shard.n_local} on each")
 
-        self._train_iter = train_iteration
-        if self.device.type == "cuda":
-            if self.shard is not None:
-                print_info("Runner: the data-parallel epoch runs eagerly (its collectives "
-                           "are not captured in CUDA graphs)")
-            elif self.ppo_cfg.nan_telemetry:
-                print_info("Runner: nan_telemetry runs the epoch eagerly (not captured in "
-                           "CUDA graphs)")
-            else:
-                self._train_iter = GraphedEpoch()
+        self._train_iter = epoch_for(self.device, self.shard, "Runner: ")
         self.game_rewards = AverageMeter(self.ppo_cfg.games_to_track)
         self.ts: Optional[TrainState] = None
 
@@ -505,30 +496,16 @@ class Runner:
     def make_policy(self, deterministic: bool = True,
                     curriculum_level: Optional[float] = None):
         """The deployment-side policy: ``(obs, generator=None) -> action``
-        over the current actor, with the training-time obs and action clips.
-        In success-gated curriculum mode the env is set to full difficulty
+        over the current actor, with the training-time obs and action clips
+        (``graphs.GraphedPolicy``: one CUDA graph on the card). In
+        success-gated curriculum mode the env is set to full difficulty
         (level 1.0) unless ``curriculum_level`` overrides it."""
         if self._cur_gated:
             lvl = 1.0 if curriculum_level is None else float(curriculum_level)
             self.env.params.set_curriculum_level_(lvl)
             print_info(f"play: curriculum level {lvl:.2f}")
-        cfg, shard = self.ppo_cfg, self.shard
-        actor_critic = self.ts.actor_critic
-        n_draw = self.num_envs_global
-        if self.device.type == "cuda":
-            print_info("play: the policy runs eagerly (not captured in a CUDA graph); "
-                       "the env's reset and step replay captured graphs")
-
-        @torch.no_grad()
-        def policy(obs, generator: Optional[torch.Generator] = None):
-            mu, log_std, _ = actor_critic(torch.clamp(obs, -cfg.clip_obs, cfg.clip_obs))
-            action = mu
-            if not deterministic:  # the global block's rows under a shard
-                action = mu + torch.exp(log_std) * shard_batch(torch.randn(
-                    (n_draw, mu.shape[1]), generator=generator, device=mu.device), shard)
-            return torch.clamp(action, -cfg.clip_actions, cfg.clip_actions)
-
-        return policy
+        return GraphedPolicy(self.ppo_cfg, self.ts.actor_critic, self.num_envs_global,
+                             deterministic, self.shard)
 
     def wrap_env(self, env=None):
         """The inference-side obs wrappers the policy was trained with:

@@ -58,25 +58,22 @@ def make_train_step_for_dryrun(env, frames: int = 1):
     rank's. ``train_step(ts)`` runs one epoch in place and returns its
     metrics; ``frames`` > 1 runs the frame stack of the flagship recipe. On
     a CUDA device the epoch replays CUDA graphs (``learning/graphs.py``, the
-    reference's ``jax.jit(train_iteration)``), except under a shard, whose
-    collectives are not captured."""
-    from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
-    from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state, train_iteration
+    reference's ``jax.jit(train_iteration)``), without a shard and under
+    NCCL; under gloo it runs eagerly (``graphs.epoch_for``).
+    ``train_step.epoch`` is the epoch function."""
+    from leibnizgym_tpu_torch.learning.graphs import epoch_for
+    from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state
 
     n = env.static.envs_counted
     cfg = PPOConfig(horizon=4, minibatch_size=n, mini_epochs=2, cv_minibatch_size=n,
                     cv_mini_epochs=2, frames=frames)
     ts = init_train_state(cfg, env.static, env.params, 0, shard=env.shard)
-    epoch = train_iteration
-    if env.device.type == "cuda":
-        if env.shard is None:
-            epoch = GraphedEpoch()
-        else:
-            print_info("[dryrun] the data-parallel epoch runs eagerly (its collectives are "
-                       "not captured in CUDA graphs)")
+    epoch = epoch_for(env.device, env.shard, "[dryrun] ")
 
     def train_step(ts):
         return epoch(cfg, env.static, env.params, ts)
+
+    train_step.epoch = epoch
 
     print_info(f"[dryrun] PPO train step built: {n} envs, "
                f"{ts.shard.world if ts.shard is not None else 1} rank(s)")

@@ -29,11 +29,13 @@ published float32 and memory rates.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
 import fcntl
 import functools
+import gc
 import hashlib
 import os
 import re
@@ -263,27 +265,53 @@ def prepare(device=None) -> None:
 
 class CountedGraph:
     """A ``torch.cuda.CUDAGraph`` whose replays add the kernel launches it
-    captured to ``launch_count``; capturing launches nothing and counts
-    nothing."""
+    captured to ``launch_count`` and, given ``counts`` (a
+    ``collections.Counter`` counted in Python, such as a ``DataShard``'s
+    collectives), what its capture counted there; capturing launches
+    nothing and counts nothing.
 
-    def __init__(self):
+    Every capture runs in ``torch.cuda.graph``'s ``"thread_local"`` error
+    mode: an NCCL process group's watchdog thread queries CUDA events while
+    a capture is open, which the default ``"global"`` mode would turn into
+    an invalidated capture, whether or not the graph holds collectives.
+
+    Python's cyclic garbage collector is off while a capture is open:
+    collecting a dead cycle that holds another CUDA graph (an env and its
+    graphs form one) would destroy that graph inside the capture, which
+    CUDA forbids and which invalidates the capture. ``torch.cuda.graph`` no
+    longer collects before a capture."""
+
+    def __init__(self, counts: collections.Counter | None = None):
         self.graph = torch.cuda.CUDAGraph()
         self.launches = 0
+        self.counts = counts
+        self.counted = collections.Counter()
 
     @contextlib.contextmanager
     def capture(self, pool=None):
         global launch_count
         before = launch_count
+        counts_before = collections.Counter(self.counts)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(self.graph, pool=pool):
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
                 yield self
         finally:
+            if collecting:
+                gc.enable()
             self.launches, launch_count = launch_count - before, before
+            if self.counts is not None:
+                self.counted = self.counts - counts_before
+                self.counts.clear()
+                self.counts.update(counts_before)
 
     def replay(self) -> None:
         global launch_count
         self.graph.replay()
         launch_count += self.launches
+        if self.counts is not None:
+            self.counts.update(self.counted)
 
 
 def occupancy() -> dict:

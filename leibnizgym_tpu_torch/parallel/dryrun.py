@@ -7,7 +7,12 @@ stack, so that config growth cannot silently break the sharded path.
 Tiny shapes: 4 envs per rank, 2 substeps.
 
     python -c "from leibnizgym_tpu_torch.graft_entry import dryrun_multichip; dryrun_multichip(2)"
+    python -c "from leibnizgym_tpu_torch.graft_entry import dryrun_multichip; dryrun_multichip(2, 'cuda')"
     python -c "from leibnizgym_tpu_torch.graft_entry import dryrun_multichip; dryrun_multichip(2, 'cpu')"
+
+A device name (``cuda:0``, ``cpu``) puts every rank on it under gloo, whose
+epochs run eagerly on a card; ``cuda`` puts rank r on ``cuda:r`` under
+NCCL, whose epochs replay CUDA graphs (``learning/train.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ def dryrun_rank(device: str = "cuda:0") -> dict:
     from leibnizgym_tpu_torch.parallel.mesh import data_shard
 
     rank, world = dist.get_rank(), dist.get_world_size()
-    dev = torch.device(device)
+    dev = torch.device(f"cuda:{rank}" if device == "cuda" else device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
     n = ENVS_PER_RANK * world
     shard = data_shard(n)
     env = TrifingerEnv(config={"num_instances": n, "command_mode": "torque",
@@ -43,6 +50,7 @@ def dryrun_rank(device: str = "cuda:0") -> dict:
 
     train_step, ts = make_train_step_for_dryrun(env)
     out["loss"] = float(train_step(ts)["losses/total"])
+    out["graphed"] = getattr(train_step.epoch, "graphs", None) is not None
     print(f"[dryrun] sharded PPO train step OK on rank {rank} of {world}", flush=True)
 
     cfg_all = update_cfg(parse_cli(["gym=trifinger_difficulty_4_curriculum_dr",
@@ -63,9 +71,12 @@ def dryrun_rank(device: str = "cuda:0") -> dict:
 
 
 def run_dryrun(n_processes: int, device: str = "cuda:0") -> list:
-    """The dry run in ``n_processes`` gloo processes on ``device``; returns
-    each rank's results. Several ranks may share one GPU under gloo."""
+    """The dry run in ``n_processes`` processes: gloo ones on ``device``, or
+    NCCL ones each on its card where ``device`` is ``cuda`` (module
+    docstring); returns each rank's results. Several ranks may share one GPU
+    under gloo."""
     from leibnizgym_tpu_torch.parallel.launch import launch
 
     return launch("leibnizgym_tpu_torch.parallel.dryrun:dryrun_rank", n_processes,
-                  {"device": device}, backend="gloo", timeout=900, echo=True)
+                  {"device": device}, backend="nccl" if device == "cuda" else "gloo",
+                  timeout=900, echo=True)

@@ -85,7 +85,7 @@ def launch(target: str, world: int, kwargs: Optional[dict] = None, backend: str 
 
 
 def _child(tmp: str, rank: int) -> None:
-    from leibnizgym_tpu_torch.parallel.mesh import initialize_distributed
+    from leibnizgym_tpu_torch.parallel.mesh import initialize_distributed, shutdown_distributed
 
     with open(os.path.join(tmp, "job.json")) as f:
         job = json.load(f)
@@ -95,7 +95,8 @@ def _child(tmp: str, rank: int) -> None:
     fn = getattr(importlib.import_module(module), name)
     result = fn(**torch.load(os.path.join(tmp, "kwargs.pt"), weights_only=True))
     torch.save(result, os.path.join(tmp, f"out{rank}.pt"))
-    torch.distributed.destroy_process_group()
+    del result
+    shutdown_distributed()
 
 
 if __name__ == "__main__":

@@ -18,7 +18,15 @@ order:
 
 A ``DataShard`` always issues its collectives, at ``W = 1`` too; the plain
 single-process path passes no shard and issues none. ``DataShard.counts``
-counts the collectives each helper issues.
+counts the collectives each helper issues; inside a CUDA graph the helper
+counts once at capture, and ``ops/cuda_engine.py``'s ``CountedGraph`` takes
+that back and adds it at each replay.
+
+The helpers issue only device work on the current stream (no read back to
+the host, no tensor made from host data), so that an NCCL shard's
+collectives can be captured in the epoch's CUDA graphs
+(``learning/graphs.py``); the CPU tests run them under a guard that fails on
+either.
 
 The JAX Runner also shards over the local devices of one process; the port
 does not: without a process group the Runner uses its one device.
@@ -29,6 +37,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import datetime
+import gc
 import os
 from typing import Dict, List, Optional, Sequence
 
@@ -66,6 +75,18 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
         dist.init_process_group(backend, init_method=url, world_size=int(num_processes),
                                 rank=int(process_id), **kw)
     return dist.get_rank(), dist.get_world_size()
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group. CUDA graphs that captured its NCCL
+    collectives must be gone first: NCCL waits for every graph that holds a
+    communicator before it tears that down (over several ranks; one rank's
+    collectives are copies). Such graphs may sit in reference cycles (an
+    env and its graphs, a Runner and its epoch) that only the cyclic
+    collector frees, so it runs here; a caller drops its own references
+    before."""
+    gc.collect()
+    dist.destroy_process_group()
 
 
 def local_rank() -> int:

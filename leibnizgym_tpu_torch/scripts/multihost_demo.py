@@ -12,9 +12,11 @@ Rank and world come from the arguments, else from ``RANK`` / ``WORLD_SIZE``
 rank from ``ENVS_PER_DEVICE`` (default 8). The backend is NCCL on CUDA and
 gloo on the CPU unless ``--backend`` says otherwise (gloo lets several ranks
 share one GPU). Each rank runs on ``cuda:{rank % device_count}`` unless
-``--device`` names another. A world of 1 runs without a process group.
-Every rank prints the same ``loss ... kl ...`` line: the learner is
-replicated.
+``--device`` names another. A world of 1 runs without a process group
+unless ``--backend`` names one. On a card the epochs replay CUDA graphs
+(the reference jits its step), NCCL collectives and all; under gloo they
+run eagerly (``learning/graphs.py`` ``epoch_for``). Every rank prints the
+same ``loss ... kl ...`` line: the learner is replicated.
 """
 
 from __future__ import annotations
@@ -26,8 +28,13 @@ import sys
 import torch
 
 from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
-from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state, train_iteration
-from leibnizgym_tpu_torch.parallel.mesh import data_shard, initialize_distributed
+from leibnizgym_tpu_torch.learning.graphs import epoch_for
+from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state
+from leibnizgym_tpu_torch.parallel.mesh import (
+    data_shard,
+    initialize_distributed,
+    shutdown_distributed,
+)
 from leibnizgym_tpu_torch.utils.helpers import resolve_device
 
 
@@ -52,7 +59,7 @@ def main(argv=None) -> dict:
         torch.cuda.set_device(device)
     shard = None
     n = envs_per_device * world
-    if world > 1:
+    if world > 1 or args.backend:
         initialize_distributed(coordinator, world, rank, backend=args.backend
                                or ("nccl" if device.type == "cuda" else "gloo"))
         shard = data_shard(n)
@@ -64,12 +71,14 @@ def main(argv=None) -> dict:
     cfg = PPOConfig(horizon=4, minibatch_size=n, mini_epochs=2, cv_minibatch_size=n,
                     cv_mini_epochs=2)
     ts = init_train_state(cfg, env.static, env.params, seed=0, shard=shard)
+    epoch = epoch_for(device, shard, f"[{rank}] ")
     for _ in range(3):
-        metrics = train_iteration(cfg, env.static, env.params, ts)
+        metrics = epoch(cfg, env.static, env.params, ts)
     total, kl = float(metrics["losses/total"]), float(metrics["info/kl"])
     print(f"[{rank}] 3 sharded train steps OK: loss {total:.6f} kl {kl:.6f}", flush=True)
     if shard is not None:
-        torch.distributed.destroy_process_group()
+        del epoch  # its CUDA graphs hold the group's NCCL collectives
+        shutdown_distributed()
     return {"loss": total, "kl": kl}
 
 

@@ -4,7 +4,8 @@
 For each device count k, k ranks (``parallel/launch.py``) each step
 ``--envs-per-device`` envs with random actions: a warm-up rollout of
 ``--steps`` steps, then a timed one; with ``--train`` also one warm-up PPO
-epoch and three timed ones (horizon 8, 2 + 2 mini-epochs). Throughput is
+epoch and three timed ones (horizon 8, 2 + 2 mini-epochs; on the card CUDA
+graph replays with their NCCL collectives, as the reference jits them). Throughput is
 k x envs-per-device x steps over the slowest rank's time (the ranks meet
 at a barrier before and after), and the scaling efficiency is the rollout
 rate over k times the first count's.
@@ -35,7 +36,8 @@ def bench_rank(envs_per_device: int, steps: int, train: bool, device: str) -> di
     """One rank's part of a device count (run by ``parallel.launch``):
     returns its timed seconds and the count's env-steps/s."""
     from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
-    from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state, train_iteration
+    from leibnizgym_tpu_torch.learning.graphs import epoch_for
+    from leibnizgym_tpu_torch.learning.ppo import PPOConfig, init_train_state
     from leibnizgym_tpu_torch.ops import cuda_engine
     from leibnizgym_tpu_torch.parallel.mesh import data_shard, shard_batch
 
@@ -72,9 +74,10 @@ def bench_rank(envs_per_device: int, steps: int, train: bool, device: str) -> di
         cfg = PPOConfig(horizon=8, minibatch_size=max(n, 32), mini_epochs=2,
                         cv_minibatch_size=max(n, 32), cv_mini_epochs=2)
         ts = init_train_state(cfg, env.static, env.params, seed=0, shard=shard)
-        train_iteration(cfg, env.static, env.params, ts)
+        epoch = epoch_for(dev, shard)
+        epoch(cfg, env.static, env.params, ts)  # on a card: the warm-up, then the capture
         iters = 3
-        out["train_s"] = timed(lambda: [train_iteration(cfg, env.static, env.params, ts)
+        out["train_s"] = timed(lambda: [epoch(cfg, env.static, env.params, ts)
                                         for _ in range(iters)])
         out["train_sps"] = n * cfg.horizon * iters / out["train_s"]
     out["kernel_launches"] = cuda_engine.launch_count  # 0 on the CPU

@@ -21,7 +21,8 @@ one process per GPU: with ``torchrun`` (its environment gives the
 rendezvous), or with ``args.coordinator_address`` (``host:port``, a
 ``tcp://`` or ``file://`` URL), ``args.num_processes`` and
 ``args.process_id``. NCCL on CUDA, gloo on the CPU; each rank takes
-``cuda:{LOCAL_RANK % device_count}`` and ``args.num_envs`` / W envs:
+``cuda:{LOCAL_RANK % device_count}`` and ``args.num_envs`` / W envs, and
+leaves the group at the end (``parallel/mesh.py`` ``shutdown_distributed``):
 
     torchrun --nproc_per_node 2 -m leibnizgym_tpu_torch.scripts.train args.multihost=True \\
         args.num_envs=16384
@@ -74,7 +75,7 @@ def main(argv):
     if args["verbose"]:
         print_info("Full configuration:")
         print_dict(cfg)
-    return run_training(
+    out = run_training(
         task_cfg=cfg["gym"],
         agent_cfg=cfg["rlg"],
         logdir=args["logdir"],
@@ -88,6 +89,11 @@ def main(argv):
         visualize=not args.get("headless", True),
         device=device,
     )
+    if args.get("multihost"):
+        from leibnizgym_tpu_torch.parallel.mesh import shutdown_distributed
+
+        shutdown_distributed()
+    return out
 
 
 if __name__ == "__main__":

@@ -32,7 +32,6 @@ import numpy as np
 import pytest
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from leibnizgym_tpu.config.presets import GYM_PRESETS
 from leibnizgym_tpu.envs.trifinger import env as jenv
@@ -52,21 +51,11 @@ from test_torch_d4_env import (
     reference_step_draws,
 )
 from test_torch_runner import _real_runner
+# the guard and the guarded epoch live with the rank functions, which the
+# data-parallel graph tests run in spawned processes without JAX
+from torch_parallel_workers import CaptureGuard, GuardedEpoch
 
 torch.set_num_threads(1)
-
-_RANDOM = {"rand", "randn", "randperm", "randint", "normal", "normal_", "uniform",
-           "uniform_", "random_", "bernoulli", "bernoulli_", "multinomial", "exponential_"}
-
-
-class CaptureGuard(TorchDispatchMode):
-    """Fails on the operations a CUDA-graph capture cannot hold."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.overloadpacket.__name__
-        if name in ("lift_fresh", "_local_scalar_dense") or name in _RANDOM:
-            raise AssertionError(f"{func} inside a captured body")
-        return func(*args, **(kwargs or {}))
 
 
 # ---------------------------------------------------------------------------
@@ -291,19 +280,16 @@ def _ramped(preset: str) -> dict:
     return {"episode_length": 2, "goal_curriculum": gc, "termination_conditions": term}
 
 
+# case -> (gym preset, gym changes, agent changes)
 EPOCH_CASES = {
-    "gated_level": ("trifinger_difficulty_4_curriculum_dr", {"episode_length": 3}),
+    "gated_level": ("trifinger_difficulty_4_curriculum_dr", {"episode_length": 3}, {}),
     "frame_ramps": ("trifinger_difficulty_4_curriculum",
-                    _ramped("trifinger_difficulty_4_curriculum")),
+                    _ramped("trifinger_difficulty_4_curriculum"), {}),
+    # the nan/* metrics of every epoch; the per-step gradient norms are the
+    # ac step graph's sixth row of terms
+    "nan_telemetry": ("trifinger_difficulty_4_curriculum",
+                      _ramped("trifinger_difficulty_4_curriculum"), {"nan_telemetry": True}),
 }
-
-
-class GuardedEpoch(tgraphs.GraphedEpoch):
-    """The bodies under ``CaptureGuard``."""
-
-    def _run(self, on_phase, replay):
-        with CaptureGuard():
-            super()._run(on_phase, replay)
 
 
 def _learner(r):
@@ -352,10 +338,11 @@ def test_graphed_epoch_bodies_match_train_iteration(case, tmp_path):
     ``train_iteration`` on twin learners: epoch 1 from the generator, the
     rest from injected draws; the curriculum level written in place before
     epoch 3; a checkpoint of epoch 1 restored in place into both before
-    epoch 4. Every metric and every learner and carry tensor bitwise equal."""
-    preset, changes = EPOCH_CASES[case]
-    eager = _real_runner(tmp_path / "eager", gym=preset, gym_changes=changes)
-    graphed = _real_runner(tmp_path / "graphed", gym=preset, gym_changes=changes)
+    epoch 4. Every metric (with ``nan_telemetry`` every ``nan/*`` key) and
+    every learner and carry tensor bitwise equal."""
+    preset, changes, agent = EPOCH_CASES[case]
+    eager = _real_runner(tmp_path / "eager", gym=preset, gym_changes=changes, **agent)
+    graphed = _real_runner(tmp_path / "graphed", gym=preset, gym_changes=changes, **agent)
     for r in (eager, graphed):
         r.reset()
     epoch = GuardedEpoch()
@@ -375,6 +362,7 @@ def test_graphed_epoch_bodies_match_train_iteration(case, tmp_path):
                                   **copy.deepcopy(draws))
         mg = epoch(cfg, graphed.static, graphed.env_params, graphed.ts, **copy.deepcopy(draws))
         _assert_same(me, mg, f"{case} epoch {e} metrics")
+        assert len([k for k in mg if k.startswith("nan/")]) == (22 if agent else 0)
         _assert_same(_learner(eager), _learner(graphed), f"{case} epoch {e} learner")
         if e == 1:
             eager.save("epoch1")

@@ -29,7 +29,10 @@ by ``parallel.launch``, each rank a fresh ``python`` with
 - Against the JAX package: the port's 2-rank epoch, fed a recorded
   trajectory and the reference's draws, against the reference's
   ``train_iteration`` on a 2-device data mesh (``shard_batch_pytree``), with
-  ``test_torch_ppo_update.py::test_update_matches_reference``'s tolerances.
+  ``test_torch_ppo_update.py::test_update_matches_reference``'s tolerances;
+  the same ranks then run the epoch as the graph bodies of
+  ``learning/graphs.py`` under ``CaptureGuard``, held to the reference
+  alike and bitwise to their eager epoch.
 """
 
 import dataclasses
@@ -189,8 +192,18 @@ def _hold_adam(ref_opt, ours):
             assert np.abs(m.numpy() - r).max() <= 1e-5 * np.abs(r).max() + 1e-12, (key, name)
 
 
-@pytest.mark.parametrize("case", list(JAX_CASES))
-def test_two_rank_update_matches_reference_on_data_mesh(case, monkeypatch):
+@pytest.fixture(scope="module")
+def mesh_runs():
+    return {}
+
+
+def _mesh_run(mesh_runs, case):
+    """(port config, the reference's train state and metrics after its
+    epoch on a 2-device mesh, each rank's epochs by mode), once per case:
+    the ranks run the epoch eagerly and as the graph bodies under
+    ``CaptureGuard``, both from the converted learner."""
+    if case in mesh_runs:
+        return mesh_runs[case]
     n, h = 64, 8
     static = upd.Static(n, upd.OBS, upd.STATES, upd.ACT, True)
     jcfg = jppo.PPOConfig(horizon=h, mini_epochs=2, cv_mini_epochs=3, units=upd.UNITS,
@@ -207,8 +220,9 @@ def test_two_rank_update_matches_reference_on_data_mesh(case, monkeypatch):
         obs=jax.device_put(jts.obs, data), states=jax.device_put(jts.states, data),
         ep_return=jax.device_put(jts.ep_return, data), ep_len=jax.device_put(jts.ep_len, data))
     assert len(sharded.obs.sharding.device_set) == 2
-    monkeypatch.setattr(jppo, "env_step", upd._jax_stub(table))
-    new_jts, jm = jax.jit(lambda ts: jppo.train_iteration(jcfg, static, None, ts))(sharded)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jppo, "env_step", upd._jax_stub(table))
+        new_jts, jm = jax.jit(lambda ts: jppo.train_iteration(jcfg, static, None, ts))(sharded)
     jts, new_jts, jm = jax.device_get((jts, new_jts, jm))
 
     tts = train_state_from_jax(jts, tcfg, static, env_state=upd.TorchStubState(
@@ -223,8 +237,13 @@ def test_two_rank_update_matches_reference_on_data_mesh(case, monkeypatch):
     out = launch("torch_parallel_workers:stub_update", 2, dict(
         cfg=cfg, static=dataclasses.asdict(static), learner=learner,
         table={k: torch.as_tensor(v) for k, v in table.items() if k != "obs0"},
-        noise=noise, perms=perms), pythonpath=[TESTS], timeout=120)
+        noise=noise, perms=perms, modes=("eager", "graphed")), pythonpath=[TESTS], timeout=120)
+    mesh_runs[case] = (tcfg, new_jts, jm, out)
+    return mesh_runs[case]
 
+
+def _hold_reference(tcfg, new_jts, jm, out, mode):
+    out = [r[mode] for r in out]
     for r in out:
         tm = r["metrics"]
         assert set(tm) == set(jm)
@@ -253,3 +272,36 @@ def test_two_rank_update_matches_reference_on_data_mesh(case, monkeypatch):
     for name in ("obs", "states", "ep_return", "ep_len"):
         ours = torch.cat([r["carry"][name] for r in out])
         assert max_diff(getattr(new_jts, name), ours) < 1e-3, name
+
+
+@pytest.mark.parametrize("case", list(JAX_CASES))
+def test_two_rank_update_matches_reference_on_data_mesh(case, mesh_runs):
+    _hold_reference(*_mesh_run(mesh_runs, case), "eager")
+
+
+@pytest.mark.parametrize("case", list(JAX_CASES))
+def test_two_rank_graph_bodies_match_reference_on_data_mesh(case, mesh_runs):
+    """The two ranks' epoch as the graph bodies of ``learning/graphs.py``
+    under ``CaptureGuard`` (fed the same draws, as the graphed epoch is):
+    held to the reference on its 2-device mesh as the eager epoch is above,
+    and bitwise equal to the eager epoch on each rank, metrics, steps,
+    learner, optimizer states and carry."""
+    tcfg, new_jts, jm, out = _mesh_run(mesh_runs, case)
+    _hold_reference(tcfg, new_jts, jm, out, "graphed")
+    for r in out:
+        eager, graphed = r["eager"], r["graphed"]
+        assert eager["steps"] == graphed["steps"]
+        assert set(eager["metrics"]) == set(graphed["metrics"])
+        for k, v in eager["metrics"].items():
+            assert torch.equal(v, graphed["metrics"][k]) if torch.is_tensor(v) \
+                else v == graphed["metrics"][k], k
+        for part in ("ac", "cv", "carry"):
+            for k, v in eager[part].items():
+                assert torch.equal(v, graphed[part][k]), (part, k)
+        for net in ("ac", "cv"):
+            e_opt, g_opt = eager["opts"][net], graphed["opts"][net]
+            assert torch.equal(torch.as_tensor(e_opt["count"]), torch.as_tensor(g_opt["count"]))
+            for key in ("mu", "nu"):
+                for k, v in e_opt[key].items():
+                    assert torch.equal(v, g_opt[key][k]), (net, key, k)
+        assert (eager["epoch"], eager["frame"]) == (graphed["epoch"], graphed["frame"])

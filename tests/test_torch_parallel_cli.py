@@ -144,7 +144,8 @@ def test_dp_cards_tool_cpu():
     """``tools/dp_cards.py`` (W ranks against one, strong and weak) as 2 gloo
     processes on the CPU: every rank's learner is the same, and at these
     sizes (2 steps of one substep, too short for contacts to amplify the
-    rounding) the 2-rank epochs learn as the 1-rank ones to rtol 1e-4."""
+    rounding) the 2-rank epochs learn as the 1-rank ones to rtol 1e-4; on
+    the CPU no epoch is graphed and no graphed-against-eager pair runs."""
     sys.path.insert(0, ROOT)
     from tools import dp_cards
 
@@ -153,3 +154,5 @@ def test_dp_cards_tool_cpu():
     assert out["world"] == 2 and out["learners_replicated"]
     assert out["strong_free_run_max_rel_diff"] < 1e-4
     assert out["weak_env_steps_per_s"] > 0 and out["one_rank_env_steps_per_s"] > 0
+    assert not any(out["graphed_epochs"]) and out["graphed_equals_eager_bitwise"] is None
+    assert "eager" not in out

@@ -10,14 +10,61 @@ import dataclasses
 import os
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from leibnizgym_tpu_torch.config.presets import default_config, update_cfg
-from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv
-from leibnizgym_tpu_torch.learning import ppo
+from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv, env_state_tensors
+from leibnizgym_tpu_torch.learning import graphs, ppo
 
 torch.set_num_threads(1)
 
 TRAJ_KEYS = ("obs", "states", "action", "mu", "reward", "done", "value")
+
+_RANDOM = {"rand", "randn", "randperm", "randint", "normal", "normal_", "uniform",
+           "uniform_", "random_", "bernoulli", "bernoulli_", "multinomial", "exponential_"}
+
+
+class CaptureGuard(TorchDispatchMode):
+    """Fails on the operations a CUDA-graph capture cannot hold: a tensor
+    made from host data (``lift_fresh``), a read back to the host
+    (``_local_scalar_dense``) or a random draw."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in ("lift_fresh", "_local_scalar_dense") or name in _RANDOM:
+            raise AssertionError(f"{func} inside a captured body")
+        return func(*args, **(kwargs or {}))
+
+
+class GuardedEpoch(graphs.GraphedEpoch):
+    """The epoch's graph bodies under ``CaptureGuard``."""
+
+    def _run(self, on_phase, replay):
+        with CaptureGuard():
+            super()._run(on_phase, replay)
+
+
+class GuardedPolicy(graphs.GraphedPolicy):
+    """The policy's graph body under ``CaptureGuard``."""
+
+    def _body(self):
+        with CaptureGuard():
+            super()._body()
+
+
+@torch.no_grad()
+def eager_policy(cfg, actor_critic, obs, deterministic, n_draw, shard=None, generator=None):
+    """The play policy as ``Runner.make_policy`` ran it eagerly: the clipped
+    obs through the actor, the noise of the global block's rows drawn after
+    the forward, the action clipped."""
+    from leibnizgym_tpu_torch.parallel.mesh import shard_batch
+
+    mu, log_std, _ = actor_critic(torch.clamp(obs, -cfg.clip_obs, cfg.clip_obs))
+    action = mu
+    if not deterministic:
+        action = mu + torch.exp(log_std) * shard_batch(torch.randn(
+            (n_draw, mu.shape[1]), generator=generator, device=mu.device), shard)
+    return torch.clamp(action, -cfg.clip_actions, cfg.clip_actions)
 
 
 def d1_config(num_envs: int, agent: dict) -> dict:
@@ -103,19 +150,27 @@ def _stub_env_step(table):
     def env_step(static, params, state, action, draws):
         t = state.t
         new = StubState(t + 1, table["reset"][t], table["successes"][t])
-        info = {"env/action_mean": torch.mean(action), "env/step": torch.tensor(float(t))}
+        info = {"env/action_mean": torch.mean(action), "env/step": torch.full((), float(t))}
         return new, table["obs"][t], table["states"][t], table["reward"][t], table["done"][t], info
 
     return env_step
 
 
-def stub_update(cfg: dict, static: dict, learner: dict, table: dict, noise, perms) -> dict:
-    """One epoch of ``train_iteration`` as this rank of the process group on
+def stub_update(cfg: dict, static: dict, learner: dict, table: dict, noise, perms,
+                modes=("eager",)) -> dict:
+    """For each of ``modes``, one epoch as this rank of the process group on
     its rows of a recorded trajectory ``table`` (global (h, N, ...) arrays),
     from the converted ``learner`` (state dicts, Adam states, lr, epoch,
     frame, the global carry), fed the global action ``noise`` and the
-    permutations ``perms``. Returns the metrics, every actor step's (KL,
-    lr), and the learner and carry after the epoch."""
+    permutations ``perms``: "eager" through ``train_iteration``, "graphed"
+    through the graph bodies under ``CaptureGuard``. Returns by mode the
+    metrics, every actor step's (KL, lr), and the learner and carry after
+    the epoch."""
+    return {mode: _stub_update(cfg, static, learner, table, noise, perms, mode)
+            for mode in modes}
+
+
+def _stub_update(cfg, static, learner, table, noise, perms, mode):
     from leibnizgym_tpu_torch.parallel.mesh import data_shard
 
     pcfg = ppo.PPOConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()})
@@ -129,7 +184,8 @@ def stub_update(cfg: dict, static: dict, learner: dict, table: dict, noise, perm
     carry = ppo.RolloutCarry(
         StubState(0, torch.zeros(shard.n_local, dtype=torch.bool),
                   torch.zeros(shard.n_local, dtype=torch.int32)),
-        *(shard.take(learner["carry"][k]) for k in ("obs", "states", "ep_return", "ep_len")))
+        *(shard.take(learner["carry"][k]).clone()  # the epoch writes the carry in place
+          for k in ("obs", "states", "ep_return", "ep_len")))
     ts = ppo.TrainState.create(pcfg, ac, cv, carry, torch.Generator().manual_seed(0), shard)
     ts.ac_opt.load_state_dict(learner["ac_opt"])
     if cv is not None:
@@ -140,15 +196,17 @@ def stub_update(cfg: dict, static: dict, learner: dict, table: dict, noise, perm
 
     def recording_step(cfg, ac, opt, lr, mb, shard=None):
         new_lr, terms = step(cfg, ac, opt, lr, mb, shard)
-        steps.append((float(terms[4]), float(new_lr)))
+        steps.append((terms[4].clone(), new_lr.clone()))  # no host read in a body
         return new_lr, terms
 
+    epoch = ppo.train_iteration if mode == "eager" else GuardedEpoch()
     ppo.env_step, ppo.actor_critic_step = _stub_env_step(local), recording_step
     try:
-        m = ppo.train_iteration(pcfg, st, None, ts, noise=noise,
-                                env_draws=[None] * pcfg.horizon, perms=perms)
+        m = epoch(pcfg, st, None, ts, noise=noise, env_draws=[None] * pcfg.horizon,
+                  perms=perms)
     finally:
         ppo.env_step, ppo.actor_critic_step = env_step, step
+    steps = [(float(kl), float(lr)) for kl, lr in steps]
     opts = {"ac": ts.ac_opt.state_dict()}
     if cv is not None:
         opts["cv"] = ts.cv_opt.state_dict()
@@ -189,3 +247,125 @@ def runner_train_restore(num_envs: int, epochs: int, logdir: str, restore: str) 
     final = os.path.join(runner.nn_dir, "final") if runner.is_main else None
     runner.restore(restore)
     return {"trained": trained, "restored": learner_payload(runner), "final": final}
+
+
+# the cases of ``graph_bodies``: the agent overrides of each
+GRAPH_CASES = {
+    "time_sliced": {},  # minibatch = N: num_mb = 4 divides the horizon
+    "global_shuffle": {"minibatch_size": 10, "cv_minibatch_size": 10},  # num_mb = 3
+    "nan_telemetry": {"nan_telemetry": True},
+}
+
+
+def _train_state_tensors(ts) -> dict:
+    """Every tensor an epoch changes: parameters, Adam moments and counts,
+    lr, the rollout carry and env state."""
+    out = {f"ac.{k}": v for k, v in ts.actor_critic.state_dict().items()}
+    out.update({f"cv.{k}": v for k, v in ts.central_value.state_dict().items()})
+    for tag, opt in (("ac_opt", ts.ac_opt), ("cv_opt", ts.cv_opt)):
+        out.update({f"{tag}.mu.{n}": m for n, m in zip(opt.names, opt.mu)})
+        out.update({f"{tag}.nu.{n}": m for n, m in zip(opt.names, opt.nu)})
+        out[f"{tag}.count"] = opt.count
+    out["lr"] = ts.lr
+    out.update({f"carry.{k}": v for k, v in env_state_tensors(ts.carry.env_state).items()})
+    out.update({f"carry.{k}": getattr(ts.carry, k)
+                for k in ("obs", "states", "ep_return", "ep_len")})
+    return out
+
+
+def _unequal(a: dict, b: dict) -> list:
+    """The keys whose values are not bitwise equal (or not in both)."""
+    keys = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        same = torch.equal(x, y) if torch.is_tensor(x) else x == y
+        if not same:
+            keys.append(k)
+    return keys
+
+
+def _global_draws(pcfg, static, n_global: int, seed: int) -> dict:
+    """One epoch's global action noise, env draws and permutations, from a
+    CPU generator seeded alike on every rank."""
+    from leibnizgym_tpu_torch.envs.trifinger.env import draw_step_randoms
+
+    g = torch.Generator().manual_seed(seed)
+    h = pcfg.horizon
+    noise = torch.randn((h, n_global, static.action_dim), generator=g)
+    env_draws = [draw_step_randoms(static, g, n_global, "cpu") for _ in range(h)]
+    perms = ppo.draw_permutations(pcfg, h, n_global, True, g, "cpu")
+    return {"noise": noise, "env_draws": env_draws, "perms": perms}
+
+
+def graph_bodies(num_envs: int, epochs: int = 3) -> dict:
+    """As this rank of the process group, for each of ``GRAPH_CASES`` on the
+    D1 config (1 substep of 2 solver iterations): ``epochs`` epochs of the graph bodies (``GuardedEpoch``) and
+    of ``train_iteration`` on twin learners, epoch 1 from the generator, the
+    rest from injected global draws, epoch 1's checkpoint restored in place
+    into both before the last. Returns per case and epoch the keys of the
+    metrics and of the learner and carry that differ, both paths'
+    collectives and the ``nan/*`` keys; then the play policy's graph body
+    (``GuardedPolicy``) against the eager policy, deterministic and with
+    noise, on three calls each: whether each call's actions were equal."""
+    import copy
+
+    from leibnizgym_tpu_torch.parallel.mesh import data_shard
+
+    shard = data_shard(num_envs)
+    out = {}
+    for case, agent in GRAPH_CASES.items():
+        cfg = d1_config(num_envs, agent)
+        cfg["gym"]["sim"]["substeps"] = 1  # the physics is not what is compared here
+        cfg["gym"]["sim"]["physx"]["num_position_iterations"] = 2
+        pcfg = ppo.PPOConfig.from_rlg_params(cfg["rlg"]["params"], num_envs)
+        env = TrifingerEnv(copy.deepcopy(cfg["gym"]), device="cpu", verbose=False, shard=shard)
+        eager = ppo.init_train_state(pcfg, env.static, env.params, seed=0, shard=shard)
+        graphed = ppo.init_train_state(pcfg, env.static, env.params, seed=0, shard=shard)
+        epoch, rows, saved = GuardedEpoch(), [], None
+        for e in range(1, epochs + 1):
+            if e == epochs:  # epoch 1's learner, restored in place
+                for ts in (eager, graphed):
+                    ts.actor_critic.load_state_dict(saved["ac"])
+                    ts.central_value.load_state_dict(saved["cv"])
+                    ts.ac_opt.load_state_dict(saved["ac_opt"])
+                    ts.cv_opt.load_state_dict(saved["cv_opt"])
+                    ts.lr.copy_(saved["lr"])
+            draws = {} if e == 1 else _global_draws(pcfg, env.static, num_envs, e)
+            counts = {}
+            for mode, ts, fn in (("eager", eager, ppo.train_iteration),
+                                 ("graphed", graphed, epoch)):
+                shard.counts.clear()
+                m = fn(pcfg, env.static, env.params, ts, **copy.deepcopy(draws))
+                counts[mode] = (m, dict(shard.counts))
+            (me, ce), (mg, cg) = counts["eager"], counts["graphed"]
+            rows.append({
+                "metrics_unequal": _unequal(me, mg),
+                "state_unequal": _unequal(_train_state_tensors(eager),
+                                          _train_state_tensors(graphed)),
+                "counts_eager": ce, "counts_graphed": cg,
+                "nan_keys": sorted(k for k in mg if k.startswith("nan/")),
+                "ac_count": int(graphed.ac_opt.count),
+            })
+            if e == 1:
+                saved = {"ac": copy.deepcopy(eager.actor_critic.state_dict()),
+                         "cv": copy.deepcopy(eager.central_value.state_dict()),
+                         "ac_opt": copy.deepcopy(eager.ac_opt.state_dict()),
+                         "cv_opt": copy.deepcopy(eager.cv_opt.state_dict()),
+                         "lr": eager.lr.clone()}
+        out[case] = {"epochs": rows, "ac_steps": epoch.ac_steps, "cv_steps": epoch.cv_steps}
+
+    policy = {}
+    obs0 = graphed.carry.obs
+    for deterministic in (True, False):
+        guarded = GuardedPolicy(pcfg, graphed.actor_critic, num_envs, deterministic, shard)
+        g_eager, g_graph = (torch.Generator().manual_seed(3) for _ in range(2))
+        same = []
+        for t in range(3):
+            obs = obs0 * (1.0 + 2.0 * t)  # some beyond the obs clip
+            want = eager_policy(pcfg, graphed.actor_critic, obs, deterministic, num_envs, shard,
+                                g_eager)
+            got = guarded(obs, g_graph)
+            same.append(bool(torch.equal(want, got)) and bool((want != 0).any()))
+        policy["deterministic" if deterministic else "stochastic"] = same
+    out["policy"] = policy
+    return out
