@@ -140,9 +140,19 @@ Phases (each prints its own lines; any failure exits non-zero):
     against the eager functions from the same draws and actions: outputs,
     states and env state bitwise equal, a kept obs and a kept
     ``env.state`` unchanged by the next step, one launch per call.
+14. the reference's two other D1 recipes, 8192 envs at full widths:
+    ``rlg=vanilla`` (no central value, both towers on the 41 obs, no
+    privileged states) and ``gym.command_mode=position`` (the asymmetric
+    agent), each through ``Runner.train``, graphed, for a warm-up epoch and
+    2 timed ones. Checks: the Runner's epoch is the graphed one, 1 + 32 * 3
+    kernel launches, finite losses, KL and lr in range (vanilla's
+    central-value loss 0), the recipe's widths; the epoch split beside the
+    card's name and power limit; then each as an eager and a graphed Runner
+    from the same seed over 2 epochs (the warm-up and the first replay),
+    bitwise equal after each (``graph_pair``, as phase 13).
 The last two lines are the kernels' JSON record (times, flops, bound and
 the plain version's time from phase 6; launches summed over the counted
-paths of phases 4-13, graph replays counted by the launches they captured)
+paths of phases 4-14, graph replays counted by the launches they captured)
 and the device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
@@ -2270,8 +2280,10 @@ def learner_state(runner) -> dict:
     lr, and the rollout carry (env state, obs, states, accumulators)."""
     ts = runner.ts
     out = {f"{net}.{k}": v for net, mod in (("ac", ts.actor_critic), ("cv", ts.central_value))
-           for k, v in mod.state_dict().items()}
+           if mod is not None for k, v in mod.state_dict().items()}
     for tag, opt in (("ac_opt", ts.ac_opt), ("cv_opt", ts.cv_opt)):
+        if opt is None:  # vanilla: no central value
+            continue
         out.update({f"{tag}.mu.{k}": m for k, m in zip(opt.names, opt.mu)})
         out.update({f"{tag}.nu.{k}": m for k, m in zip(opt.names, opt.nu)})
         out[f"{tag}.count"] = opt.count
@@ -2489,6 +2501,89 @@ def phase_graphs(dev, num_envs: int = 8192) -> dict:
     return {"launches": sum(launches.values())}
 
 
+# ---------------------------------------------------------------------------
+# phase 14
+# ---------------------------------------------------------------------------
+
+RECIPE_EPOCHS = 3  # a warm-up epoch, then 2 timed epochs
+
+
+def recipe_config(recipe: str, num_envs: int):
+    """D1 under one of the reference's two other training recipes at
+    ``num_envs``, seed SEED: ``rlg=vanilla`` (no central value, the critic
+    on the 41 obs) or ``gym.command_mode=position`` (the asymmetric agent)."""
+    cfg = parse_cli(["rlg=vanilla"] if recipe == "vanilla" else ["gym.command_mode=position"])
+    cfg["args"]["num_envs"] = num_envs
+    cfg["args"]["seed"] = SEED
+    return update_cfg(cfg)
+
+
+def check_recipe_widths(recipe: str, runner) -> str:
+    """Full widths, and the recipe's own shape: vanilla has no central value
+    and both towers read the 41 obs (no privileged states); position keeps
+    the 113 states and the central value."""
+    pcfg, st, ts = runner.ppo_cfg, runner.static, runner.ts
+    ac = ts.actor_critic
+    ins = (ac.actor_0.in_features, ac.critic_0.in_features)
+    widths = (st.obs_dim, pcfg.units, pcfg.minibatch_size, pcfg.mini_epochs, pcfg.horizon)
+    check(widths == (41, (400, 200, 100), 8192, 4, 32),
+          f"phase 14 {recipe} is not D1 at full widths: {widths}")
+    if recipe == "vanilla":
+        check(not pcfg.central_value and ts.central_value is None and ts.cv_opt is None
+              and st.state_dim == 0 and ins == (41, 41),
+              f"phase 14 vanilla: central value {ts.central_value is not None}, "
+              f"states {st.state_dim}, tower inputs {ins}")
+    else:
+        check(st.command_mode == "position" and ts.central_value is not None
+              and st.state_dim == 113 and pcfg.cv_minibatch_size == 8192
+              and pcfg.cv_mini_epochs == 4 and ins == (41, 41),
+              f"phase 14 position: mode {st.command_mode}, states {st.state_dim}, "
+              f"central value {ts.central_value is not None}")
+    return (f"obs={st.obs_dim} states={st.state_dim} tower_inputs={ins[0]},{ins[1]} "
+            f"central_value={ts.central_value is not None} command_mode={st.command_mode}")
+
+
+def phase_recipes(dev, num_envs: int = 8192, epochs: int = RECIPE_EPOCHS) -> dict:
+    """Phase 14: D1 under ``rlg=vanilla`` and under
+    ``gym.command_mode=position`` through Runner.train, graphed, a warm-up
+    epoch and 2 timed ones each; then each held bitwise to an eager twin
+    over a warm-up epoch and a first replay (``graph_pair``)."""
+    launches = {}
+    for recipe in ("vanilla", "position"):
+        cfg = recipe_config(recipe, num_envs)
+        marks, history = [], []
+        with tempfile.TemporaryDirectory() as logdir:
+            runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir,
+                            seed=SEED, device=dev)
+            runner._train_iter = graphed_train_iter(f"phase 14 {recipe}", runner, history,
+                                                    marks)
+            # this recipe's main path, counted
+            cuda_engine.launch_count = 0
+            runner.reset()
+            shape = check_recipe_widths(recipe, runner)
+            t0 = time.perf_counter()
+            runner.train(max_epochs=epochs)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            n_launch = cuda_engine.launch_count
+            h, n = runner.ppo_cfg.horizon, runner.static.num_envs
+            check(n_launch == 1 + h * epochs,
+                  f"{recipe} launch_count {n_launch} != {1 + h * epochs}")
+            rows = check_epoch_metrics(recipe, history, epochs, h, n)
+            check(recipe != "vanilla" or all(r["losses/cv_loss"] == 0.0 for r in rows),
+                  "vanilla reports a central-value loss")
+            print(f"{recipe} epochs={epochs} launches={n_launch} wall_s={wall_s:.3f} {shape}",
+                  flush=True)
+            if runner.writer is not None:
+                runner.writer.close()
+            print_epoch_split(recipe, marks, epochs, h, n)
+            launches[recipe] = n_launch
+            launches[f"{recipe}_pair"] = graph_pair(recipe, cfg, dev,
+                                                    os.path.join(logdir, "pair"), [None, None])
+    print("recipes launches " + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    return {"launches": sum(launches.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2535,19 +2630,20 @@ def main() -> int:
     dp = timed("phase 11", phase_parallel, dev)
     engines = timed("phase 12", phase_engines, dev)
     graphs = timed("phase 13", phase_graphs, dev)
+    recipes = timed("phase 14", phase_recipes, dev)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed", file=sys.stderr)
         return 1
     print(smi(), flush=True)
     # phase 6 gives the times and the bound; the launches are every counted
-    # path's (phases 4-13); the error is the worst of phases 4-6
+    # path's (phases 4-14); the error is the worst of phases 4-6
     paths = {"phase 4": records["slice"]["launches"], "phase 5": records["train"]["launches"],
              "phase 6": records["d4"]["launches"], "phase 7": replay["launches"],
              "phase 8": bf16["launches"],
              "phase 9": nan["launches"], "phase 10": tools["launches"],
              "phase 11": dp["launches"], "phase 12": engines["launches"],
-             "phase 13": graphs["launches"]}
+             "phase 13": graphs["launches"], "phase 14": recipes["launches"]}
     print("launches " + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in paths.items()),
           flush=True)
     record = dict(records["d4"], launches=sum(paths.values()),

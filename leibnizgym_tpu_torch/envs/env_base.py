@@ -11,6 +11,7 @@ from __future__ import annotations
 import os
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from leibnizgym_tpu_torch.utils.helpers import merged_dict, resolve_device
@@ -88,6 +89,15 @@ class EnvBase:
     def get_action_dim(self) -> int:
         return sum(self.action_spec.values())
 
+    def get_obs_shape(self):
+        return (self.num_instances, self.get_obs_dim())
+
+    def get_state_shape(self):
+        return (self.num_instances, self.get_state_dim())
+
+    def get_action_shape(self):
+        return (self.num_instances, self.get_action_dim())
+
     @property
     def state(self):
         """The full functional EnvState."""
@@ -114,6 +124,9 @@ class EnvBase:
         """Total env steps aggregated across instances (frames * N)."""
         frames = int(self._state.frames) if self._state is not None else 0
         return frames * self.num_instances
+
+    def get_gravity(self) -> np.ndarray:
+        return np.asarray(self.config["sim"]["gravity"])
 
     # ------------------------------------------------------------ operations
 

@@ -1104,7 +1104,7 @@ class TrifingerEnv(EnvBase):
     copy of the env state."""
 
     def __init__(self, config: Optional[dict] = None, device="cuda:0",
-                 verbose: bool = True, dtype=torch.float32, visualize: bool = False,
+                 verbose: bool = True, visualize: bool = False, dtype=torch.float32,
                  shard=None):
         device = resolve_device(device)
         merged = merged_dict(dict(SIM_DEFAULT_CONFIG_DICT), TRIFINGER_DEFAULT_CONFIG_DICT)

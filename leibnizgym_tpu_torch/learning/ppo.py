@@ -358,7 +358,8 @@ class RolloutCarry:
 
 @dataclasses.dataclass
 class TrainState:
-    """The learner and its rollout carry (the reference's PPOTrainState).
+    """The learner and its rollout carry (the reference's ``PPOTrainState``,
+    also exported under that name).
     ``train_iteration`` updates it in place. ``shard`` makes it one rank of a
     data-parallel run (module docstring)."""
 
@@ -388,6 +389,9 @@ class TrainState:
         nets = [self.actor_critic] + ([self.central_value] if self.central_value is not None
                                       else [])
         return [p.data for net in nets for p in net.parameters()] + [self.lr]
+
+
+PPOTrainState = TrainState
 
 
 def init_train_state(cfg: PPOConfig, static: EnvStatic, params: EnvParams,

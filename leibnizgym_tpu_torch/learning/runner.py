@@ -71,7 +71,9 @@ import yaml
 
 from leibnizgym_tpu_torch.utils.helpers import resolve_device as _resolve_device
 from leibnizgym_tpu_torch.utils.message import print_error, print_info, print_notify, print_warn
-from leibnizgym_tpu_torch.convert import checkpoint_from_npz
+# the module, not its function: convert imports learning.ppo, so this
+# package, and may be the one still importing
+from leibnizgym_tpu_torch import convert
 from leibnizgym_tpu_torch.envs.trifinger.env import TrifingerEnv, env_state_tensors
 from leibnizgym_tpu_torch.learning.ppo import (
     PPOConfig,
@@ -217,10 +219,11 @@ class Runner:
 
     # ----------------------------------------------------------- checkpointing
 
-    def _ckpt_payload(self, clone: bool = False) -> dict:
-        """The learner state a checkpoint holds; ``clone`` copies every tensor
-        on the device (the pipeline's per-epoch snapshot)."""
-        ts = self.ts
+    def _ckpt_payload(self, clone: bool = False, ts: Optional[TrainState] = None) -> dict:
+        """The learner state a checkpoint holds, of ``ts`` (default: the
+        current train state); ``clone`` copies every tensor on the device (the
+        pipeline's per-epoch snapshot)."""
+        ts = ts if ts is not None else self.ts
 
         def tensors(d):
             return {k: v.detach().clone() if clone else v.detach() for k, v in d.items()}
@@ -264,17 +267,29 @@ class Runner:
         payload["generator_device"] = str(ts.generator.device)
         return payload
 
-    def save(self, name: str, payload: Optional[dict] = None) -> Optional[str]:
-        """Write ``payload`` (default: the current learner state) to
-        ``nn/<name>``; the train loop passes the snapshot of the epoch whose
-        metrics triggered the save. Returns the path; None on a rank other
-        than 0, which writes nothing."""
+    def save(self, name: str, ts: Optional[TrainState] = None, wait: bool = True) -> Optional[str]:
+        """Checkpoint ``ts`` (default: the current train state) to
+        ``nn/<name>``. Returns the absolute path; None on a rank other than
+        0, which writes nothing. ``torch.save`` is synchronous, so the file is
+        complete on return and ``wait`` has no effect; it is kept for the
+        reference's signature, whose checkpointer commits in the
+        background."""
+        return self._write(name, self._ckpt_payload(ts=ts))
+
+    def _write(self, name: str, payload: Optional[dict] = None) -> Optional[str]:
+        """Write ``payload`` (a ``_ckpt_payload``; None: the current learner
+        state) to ``nn/<name>`` on rank 0. The train loop passes the snapshot
+        of the epoch whose metrics triggered the save."""
         if not self.is_main:
             return None
         path = os.path.abspath(os.path.join(self.nn_dir, name))
         payload = payload if payload is not None else self._ckpt_payload()
         torch.save(_to_cpu(payload), path)
         return path
+
+    def flush_saves(self):
+        """Wait for in-flight checkpoints: none, every ``save`` is
+        synchronous (the reference's are committed in the background)."""
 
     def restore(self, path: str):
         """Load a checkpoint: a ``torch.save`` file of this runner, or a
@@ -286,7 +301,7 @@ class Runner:
             self.reset()
         ts = self.ts
         if str(path).endswith(".npz"):
-            payload = checkpoint_from_npz(path, self.device)
+            payload = convert.checkpoint_from_npz(path, self.device)
         else:
             payload = torch.load(path, map_location=self.device, weights_only=True)
         ts.actor_critic.load_state_dict(payload["ac_state_dict"])
@@ -391,14 +406,16 @@ class Runner:
                     f"epoch {epoch}/{epochs} frames {frame} fps {fps:,.0f} "
                     f"ep_rew {self.game_rewards.get_mean():.1f} "
                     f"kl {float(metrics['info/kl']):.4f} lr {float(metrics['info/lr']):.2e}"
+                    + (f" level {float(metrics.get('env/curriculum_level', 0.0)):.3f}"
+                       if self._cur_gated else "")
                 )
             mean_rew = self.game_rewards.get_mean()
             if (epoch >= cfg.save_best_after and self.game_rewards.current_size > 0
                     and mean_rew > self._best_reward):
                 self._best_reward = mean_rew
-                self.save("best", snapshot)
+                self._write("best", snapshot)
             if cfg.save_frequency and epoch % cfg.save_frequency == 0:
-                self.save("last", snapshot)
+                self._write("last", snapshot)
             if self.game_rewards.current_size > 0 and mean_rew >= cfg.score_to_win:
                 print_notify(f"score_to_win reached ({mean_rew:.1f} >= {cfg.score_to_win}); "
                              "stopping early")
@@ -413,7 +430,7 @@ class Runner:
                     path = os.path.join(self.logdir, "nan_prev_ts.pt")
                     torch.save(_to_cpu(prev_state), path)
                     print_error(f"pre-nan train state dumped to {path}")
-                self.save("nan_halt", snapshot)
+                self._write("nan_halt", snapshot)
                 return True
             return False
 
@@ -489,7 +506,7 @@ class Runner:
         if score > self._best_cur_score and now - self._last_cur_save > 60.0:
             self._best_cur_score = score
             self._last_cur_save = now
-            self.save("best_curriculum", snapshot)
+            self._write("best_curriculum", snapshot)
 
     # ---------------------------------------------------------------- playing
 

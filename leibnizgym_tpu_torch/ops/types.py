@@ -49,16 +49,19 @@ class PhysicsState(_TensorFields):
     cube_angvel: torch.Tensor  # (..., 3)
 
     @classmethod
-    def default(cls, n: int, device=None, dtype=torch.float32) -> "PhysicsState":
+    def default(cls, batch_shape=(), device=None, dtype=torch.float32) -> "PhysicsState":
+        """The resting scene over ``batch_shape`` (an int ``n`` means ``(n,)``;
+        ``()`` is one unbatched scene, as in the reference)."""
+        batch = (int(batch_shape),) if isinstance(batch_shape, int) else tuple(batch_shape)
         q0 = _tensor(np.tile(tf_model.JOINT_POS_DEFAULT, 3), device, dtype)
         quat0 = _tensor([0.0, 0.0, 0.0, 1.0], device, dtype)
         pos0 = _tensor([0.0, 0.0, tf_model.CUBE_SIZE / 2], device, dtype)
-        zeros = lambda k: torch.zeros((n, k), device=device, dtype=dtype)  # noqa: E731
+        zeros = lambda k: torch.zeros(batch + (k,), device=device, dtype=dtype)  # noqa: E731
         return cls(
-            q=q0.expand(n, 9).clone(),
+            q=q0.expand(batch + (9,)).clone(),
             qd=zeros(9),
-            cube_pos=pos0.expand(n, 3).clone(),
-            cube_quat=quat0.expand(n, 4).clone(),
+            cube_pos=pos0.expand(batch + (3,)).clone(),
+            cube_quat=quat0.expand(batch + (4,)).clone(),
             cube_linvel=zeros(3),
             cube_angvel=zeros(3),
         )

@@ -96,7 +96,7 @@ def _metrics(epoch, kl=0.01, ep_return=None, cur=None):
 
 def _stub_runner(tmp_path, cfg, metrics_for_epoch, cur_gated=False):
     """A Runner skeleton with only what ``train`` touches; ``_train_iter``
-    and ``save`` stubbed."""
+    and the checkpoint writer stubbed."""
     r = Runner.__new__(Runner)
     r.verbose = False
     r.ppo_cfg = cfg
@@ -124,8 +124,8 @@ def _stub_runner(tmp_path, cfg, metrics_for_epoch, cur_gated=False):
         return metrics_for_epoch(calls["iters"])
 
     r._train_iter = train_iter
-    r._ckpt_payload = lambda clone=False: {"epoch": r.ts.epoch}
-    r.save = lambda name, payload=None: calls["saves"].append(
+    r._ckpt_payload = lambda clone=False, ts=None: {"epoch": (ts or r.ts).epoch}
+    r._write = lambda name, payload=None: calls["saves"].append(
         (name, (payload if payload is not None else r._ckpt_payload())["epoch"]))
     return r, calls
 
