@@ -1,0 +1,18 @@
+"""Entry point of the benchmark (see ``perfbench/harness.py``):
+
+    python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
+"""
+
+import time
+
+T_START = time.perf_counter()
+
+import os  # noqa: E402
+import sys  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from perfbench import harness  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(harness.main(sys.argv[1:], T_START))
