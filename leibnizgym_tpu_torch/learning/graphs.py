@@ -81,6 +81,15 @@ action is cloned out.
 
 On the CPU nothing is captured: every call runs the bodies, which is how the
 CPU tests hold them to ``train_iteration`` and the eager policy.
+
+Tracing (``utils/trace.py``): an epoch's spans are ``epoch.setup`` (on a
+new key the buffers, on the card also the warm-up epoch and the capture),
+``epoch.draws``, ``epoch.launch.rollout`` / ``.gae`` / ``.update`` (each
+phase's replays; off the card its bodies, each run counted in
+``cuda_engine.replay_count`` as the replay it stands for) and
+``epoch.metrics``; the device marks go at the epoch's start and after each
+phase, on the epoch's stream (the warm-up's on its side stream), never
+inside a capture.
 """
 
 from __future__ import annotations
@@ -99,6 +108,7 @@ from leibnizgym_tpu_torch.envs.trifinger.env import (
 from leibnizgym_tpu_torch.learning import ppo
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.parallel.mesh import DataShard, shard_batch
+from leibnizgym_tpu_torch.utils import trace
 from leibnizgym_tpu_torch.utils.message import print_info
 
 __all__ = ["GraphedEpoch", "GraphedPolicy", "epoch_for"]
@@ -157,7 +167,9 @@ class GraphedEpoch:
             self.cv_losses = torch.zeros(self.cv_steps, dtype=torch.float32, device=device)
         self.noise = self.env_draws = None  # the first epoch's draws become the buffers
 
-    def _check(self, cfg, static, params, ts) -> None:
+    def _new_key(self, cfg, static, params, ts) -> Optional[tuple]:
+        """The objects the buffers and graphs are bound to, where one is not
+        the object they were set up for; else None."""
         if ts.lr.is_cuda and not _capturable(ts.shard):
             raise ValueError(f"GraphedEpoch: a {ts.shard.backend} shard's collectives run on "
                              "the host, which a CUDA graph cannot hold; use NCCL, or "
@@ -165,8 +177,8 @@ class GraphedEpoch:
         key = (cfg, static, params, ts, ts.actor_critic, ts.central_value, ts.ac_opt,
                ts.cv_opt, ts.lr, ts.carry, ts.carry.env_state, ts.shard)
         if self._key is None or any(a is not b for a, b in zip(key, self._key)):
-            self._setup(cfg, static, params, ts)
-            self._key = key
+            return key
+        return None
 
     def _load_draws(self, noise, env_draws, perms) -> None:
         """This epoch's draws into the static buffers, drawn from the train
@@ -250,16 +262,27 @@ class GraphedEpoch:
     # ------------------------------------------------------------------- epoch
 
     def _run(self, on_phase, replay: bool) -> None:
-        for name, body, times in self._phases():
-            for _ in range(times):
-                self.graphs[name].replay() if replay else body()
-            if on_phase is not None and name != "ac":
-                on_phase("update" if name == "cv" else name)
+        """Each phase's replays (or bodies) in an ``epoch.launch.<phase>``
+        span, then its device mark and ``on_phase``. Off the card each body
+        run counts as the replay it stands for."""
+        cuda = self.ts.lr.is_cuda
+        steps = self._phases()
+        for phase, graphs in (("rollout", steps[:1]), ("gae", steps[1:2]), ("update", steps[2:])):
+            with trace.span("epoch.launch." + phase):
+                for name, body, times in graphs:
+                    for _ in range(times):
+                        self.graphs[name].replay() if replay else body()
+                    if not cuda:
+                        cuda_engine.replay_count += times
+                trace.mark(phase, cuda)
+            if on_phase is not None:
+                on_phase(phase)
 
     def _metrics(self) -> Dict[str, torch.Tensor]:
-        return ppo.finish_epoch(self.cfg, self.ts, self.traj, list(self.ac_terms),
-                                self.cv_losses if self.asym else None, self.advs, self.returns,
-                                clone=True)
+        with trace.span("epoch.metrics"):
+            return ppo.finish_epoch(self.cfg, self.ts, self.traj, list(self.ac_terms),
+                                    self.cv_losses if self.asym else None, self.advs,
+                                    self.returns, clone=True)
 
     def _capture_graphs(self) -> None:
         shard = self.ts.shard
@@ -281,19 +304,31 @@ class GraphedEpoch:
                  on_phase: Optional[Callable[[str], None]] = None) -> Dict[str, torch.Tensor]:
         """One epoch on ``ts``, in place, as ``ppo.train_iteration``; the
         metrics are the same dict, every tensor in memory of its own."""
-        self._check(cfg, static, env_params, ts)
-        self._load_draws(noise, env_draws, perms)
-        if not ts.lr.is_cuda:
-            self._run(on_phase, replay=False)
-            return self._metrics()
-        if self.graphs is not None:
-            self._run(on_phase, replay=True)
-            return self._metrics()
-        # the warm-up: this epoch, eagerly, on a side stream; then capture
+        cuda = ts.lr.is_cuda
+        key = self._new_key(cfg, static, env_params, ts)
+        if key is not None or (cuda and self.graphs is None):
+            with trace.span("epoch.setup"):
+                if key is not None:
+                    self._setup(cfg, static, env_params, ts)
+                    self._key = key
+                if cuda:
+                    return self._warm_up(noise, env_draws, perms, on_phase)
+        trace.mark("start", cuda)
+        with trace.span("epoch.draws"):
+            self._load_draws(noise, env_draws, perms)
+        self._run(on_phase, replay=cuda)
+        return self._metrics()
+
+    def _warm_up(self, noise, env_draws, perms, on_phase) -> Dict[str, torch.Tensor]:
+        """This epoch, eagerly, on a side stream, where its marks go too; then
+        the capture."""
+        with trace.span("epoch.draws"):
+            self._load_draws(noise, env_draws, perms)
         main = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(main)
         with torch.cuda.stream(side):
+            trace.mark("start", True)
             self._run(on_phase, replay=False)
             metrics = self._metrics()
         main.wait_stream(side)

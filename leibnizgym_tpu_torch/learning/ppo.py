@@ -75,6 +75,7 @@ from leibnizgym_tpu_torch.parallel.mesh import (
     reduce_metrics,
     shard_batch,
 )
+from leibnizgym_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -679,13 +680,20 @@ def train_iteration(cfg: PPOConfig, static: EnvStatic, env_params: EnvParams,
     ``episodes/finished_*`` vectors and the last step's ``env/*`` info
     included). ``noise``, ``env_draws`` and ``perms`` (``draw_permutations``'
     layout) replace the generator's draws when given; ``on_phase`` is called
-    with "rollout", "gae" and "update" as each phase has been enqueued."""
+    with "rollout", "gae" and "update" as each phase has been enqueued. Each
+    phase runs in an ``epoch.launch.<phase>`` span and ends in its device
+    mark, the epoch's start marked too (``utils/trace.py``), as in
+    ``learning/graphs.py``."""
     ac, cv = ts.actor_critic, ts.central_value
-    carry, traj = rollout(cfg, static, env_params, ts.carry, ac, cv, generator=ts.generator,
-                          noise=noise, env_draws=env_draws, shard=ts.shard)
-    ts.carry.copy_(carry)
-    with torch.no_grad():
-        _, _, last_value = policy_and_value(ac, cv, ts.carry.obs, ts.carry.states)
+    trace.mark("start", ts.lr.is_cuda)
+    with trace.span("epoch.launch.rollout"):
+        carry, traj = rollout(cfg, static, env_params, ts.carry, ac, cv,
+                              generator=ts.generator, noise=noise, env_draws=env_draws,
+                              shard=ts.shard)
+        ts.carry.copy_(carry)
+        with torch.no_grad():
+            _, _, last_value = policy_and_value(ac, cv, ts.carry.obs, ts.carry.states)
+        trace.mark("rollout", ts.lr.is_cuda)
     if on_phase is not None:
         on_phase("rollout")
     return update(cfg, ts, traj, last_value, perms=perms, on_phase=on_phase)
@@ -812,32 +820,39 @@ def update(cfg: PPOConfig, ts: TrainState, traj: Trajectory, last_value: torch.T
     n_all = shard.n_global if shard is not None else n
     ac, cv = ts.actor_critic, ts.central_value
     asym = cv is not None
+    cuda = ts.lr.is_cuda
 
-    advs, returns = advantages(cfg, traj, last_value, shard)
+    with trace.span("epoch.launch.gae"):
+        advs, returns = advantages(cfg, traj, last_value, shard)
+        trace.mark("gae", cuda)
     if on_phase is not None:
         on_phase("gae")
 
-    if perms is None:
-        perms = draw_permutations(cfg, h, n_all, asym, ts.generator, advs.device)
-    ac_idx, cv_idx = minibatch_indices(cfg, h, n_all, asym, perms)
-    data, cv_data = minibatch_sources(cfg, traj, advs, returns, asym, shard)
-    lr, ac_terms = ts.lr, []
-    for idx in ac_idx:
-        mb = {k: v.index_select(0, idx) for k, v in data.items()}
-        lr, terms = actor_critic_step(cfg, ac, ts.ac_opt, lr, mb, shard)
-        ac_terms.append(terms)
-    ts.lr.copy_(lr)
-    cv_losses = None
-    if asym:
-        s, r = cv_data
-        cv_losses = torch.stack([central_value_step(cfg, cv, ts.cv_opt, s.index_select(0, idx),
-                                                    r.index_select(0, idx), shard)
-                                 for idx in cv_idx])
+    with trace.span("epoch.launch.update"):
+        if perms is None:
+            perms = draw_permutations(cfg, h, n_all, asym, ts.generator, advs.device)
+        ac_idx, cv_idx = minibatch_indices(cfg, h, n_all, asym, perms)
+        data, cv_data = minibatch_sources(cfg, traj, advs, returns, asym, shard)
+        lr, ac_terms = ts.lr, []
+        for idx in ac_idx:
+            mb = {k: v.index_select(0, idx) for k, v in data.items()}
+            lr, terms = actor_critic_step(cfg, ac, ts.ac_opt, lr, mb, shard)
+            ac_terms.append(terms)
+        ts.lr.copy_(lr)
+        cv_losses = None
+        if asym:
+            s, r = cv_data
+            cv_losses = torch.stack([central_value_step(cfg, cv, ts.cv_opt,
+                                                        s.index_select(0, idx),
+                                                        r.index_select(0, idx), shard)
+                                     for idx in cv_idx])
+        trace.mark("update", cuda)
     if on_phase is not None:
         on_phase("update")
 
-    per_step = [torch.stack(x) for x in zip(*ac_terms)]
-    return finish_epoch(cfg, ts, traj, per_step, cv_losses, advs, returns)
+    with trace.span("epoch.metrics"):
+        per_step = [torch.stack(x) for x in zip(*ac_terms)]
+        return finish_epoch(cfg, ts, traj, per_step, cv_losses, advs, returns)
 
 
 def _fin(x: torch.Tensor) -> torch.Tensor:

@@ -53,6 +53,17 @@ rollout carry and the generator's state, cloned on the device). A halt on a
 non-finite KL prints the epoch's ``nan/*`` metrics and writes that state as
 ``nan_prev_ts.pt`` into the logdir, beside ``env_config.yaml`` and
 ``agent_config.yaml``, for ``scripts/nan_replay.py``.
+
+Tracing (``utils/trace.py``, in memory; ranges in a ``torch.profiler``
+trace while one records): ``train`` is a ``runner.train`` span, each
+host-loop iteration a ``runner.iteration`` (its ``epoch``) holding
+``epoch`` (the epoch function; ``replays``: its graph replays, from
+``cuda_engine.replay_count``), ``runner.snapshot``, ``runner.readback``
+(``read``: the epoch read back) and ``runner.process`` with
+``runner.summary``, ``runner.curriculum`` and ``runner.checkpoint``
+(``name``; every ``_write``); Python's collections of generations 1 and 2
+are ``host.gc`` spans while ``train`` runs. An epoch's device marks are
+resolved once its metrics have been read back.
 """
 
 from __future__ import annotations
@@ -82,7 +93,9 @@ from leibnizgym_tpu_torch.learning.ppo import (
     make_optimizers,
 )
 from leibnizgym_tpu_torch.learning.graphs import GraphedPolicy, epoch_for
+from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, data_shard
+from leibnizgym_tpu_torch.utils import trace
 
 
 def resolve_device(name) -> torch.device:
@@ -282,9 +295,10 @@ class Runner:
         of the epoch whose metrics triggered the save."""
         if not self.is_main:
             return None
-        path = os.path.abspath(os.path.join(self.nn_dir, name))
-        payload = payload if payload is not None else self._ckpt_payload()
-        torch.save(_to_cpu(payload), path)
+        with trace.span("runner.checkpoint", name=name):
+            path = os.path.abspath(os.path.join(self.nn_dir, name))
+            payload = payload if payload is not None else self._ckpt_payload()
+            torch.save(_to_cpu(payload), path)
         return path
 
     def flush_saves(self):
@@ -363,6 +377,11 @@ class Runner:
 
     def train(self, max_epochs: Optional[int] = None,
               watchdog_timeout: Optional[float] = None):
+        trace.sync_clock()
+        with trace.span("runner.train"), trace.gc_spans():
+            return self._train(max_epochs, watchdog_timeout)
+
+    def _train(self, max_epochs: Optional[int], watchdog_timeout: Optional[float]):
         if self.ts is None:
             self.reset()
         cfg = self.ppo_cfg
@@ -393,14 +412,17 @@ class Runner:
             if fin_n.sum() > 0:
                 self.game_rewards.update(fin_rets[fin_n > 0])
             if self._cur_gated:
-                self._curriculum_update(metrics, frame, snapshot)
+                with trace.span("runner.curriculum"):
+                    self._curriculum_update(metrics, frame, snapshot)
             fps = cfg.horizon * self.num_envs_global / dt
             if self.writer is not None:
-                for k, v in metrics.items():
-                    self.writer.add_scalar(k, float(v), frame)
-                self.writer.add_scalar("performance/fps", fps, frame)
-                if self.game_rewards.current_size > 0:
-                    self.writer.add_scalar("rewards0/frame", self.game_rewards.get_mean(), frame)
+                with trace.span("runner.summary"):
+                    for k, v in metrics.items():
+                        self.writer.add_scalar(k, float(v), frame)
+                    self.writer.add_scalar("performance/fps", fps, frame)
+                    if self.game_rewards.current_size > 0:
+                        self.writer.add_scalar("rewards0/frame", self.game_rewards.get_mean(),
+                                               frame)
             if self.is_main and (self.verbose or epoch % 10 == 0):
                 print_info(
                     f"epoch {epoch}/{epochs} frames {frame} fps {fps:,.0f} "
@@ -447,23 +469,35 @@ class Runner:
 
         def pop_and_process():
             nonlocal last_t
-            e, m, snap = pending.popleft()
+            e, m, snap, epoch_span = pending.popleft()
             now = time.time()
             dt, last_t = now - last_t, now
-            return process(e, fetch_metrics(m), dt, snap)
+            with trace.span("runner.readback", read=e):
+                m = fetch_metrics(m)
+            # the read-back waited for the epoch's device marks
+            trace.resolve(epoch_span)
+            with trace.span("runner.process"):
+                return process(e, m, dt, snap)
 
         try:
             for epoch in range(start_epoch + 1, epochs + 1):
-                if cfg.nan_telemetry:
-                    prev_state = self.nan_dump_payload()
-                metrics = self._train_iter(cfg, self.static, self.env_params, self.ts)
-                # at depth 1 the epoch is processed now, on the current state
-                pending.append((epoch, metrics,
-                                self._ckpt_payload(clone=True) if depth > 1 else None))
-                if len(pending) >= depth:
-                    stop = pop_and_process()
-                    if stop:
-                        break
+                with trace.iteration(epoch):
+                    if cfg.nan_telemetry:
+                        prev_state = self.nan_dump_payload()
+                    with trace.span("epoch") as epoch_span:
+                        replays = cuda_engine.replay_count
+                        metrics = self._train_iter(cfg, self.static, self.env_params, self.ts)
+                        epoch_span.attrs["replays"] = cuda_engine.replay_count - replays
+                    # at depth 1 the epoch is processed now, on the current state
+                    snapshot = None
+                    if depth > 1:
+                        with trace.span("runner.snapshot"):
+                            snapshot = self._ckpt_payload(clone=True)
+                    pending.append((epoch, metrics, snapshot, epoch_span))
+                    if len(pending) >= depth:
+                        stop = pop_and_process()
+                if stop:
+                    break
             while pending and not stop:
                 stop = pop_and_process()
         finally:

@@ -14,7 +14,9 @@ CUDA tensors launches the kernel (or raises), on CPU tensors it runs the
 plain PyTorch version ``physics_step_plain`` (``ops/engine_v2.py``).
 ``launch_count`` counts kernel launches, those inside CUDA graphs too: a
 graph captured through ``CountedGraph`` remembers how many launches it
-captured, and each replay adds that many. ``prepare`` builds the kernel and
+captured, and each replay adds that many. ``replay_count`` counts the
+replays of every ``CountedGraph`` (``Runner.train``'s ``epoch`` span carries
+an epoch's share, ``utils/trace.py``). ``prepare`` builds the kernel and
 raises its shared-memory cap before any capture; the constants struct, which
 a graph keeps by value, is built once per ``(cfg, dt)``.
 
@@ -61,7 +63,7 @@ from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConf
 
 __all__ = [
     "pack_state", "pack_params", "physics_step_cuda", "physics_step_plain",
-    "step_packed_cuda", "launch_count", "build", "build_info", "kernel_consts",
+    "step_packed_cuda", "launch_count", "replay_count", "build", "build_info", "kernel_consts",
     "prepare", "CountedGraph", "occupancy", "step_flops", "step_chain", "step_bytes",
     "bound_ms", "ENVS_PER_BLOCK",
 ]
@@ -85,6 +87,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 
 launch_count = 0
+replay_count = 0
 
 _lib = None
 build_info: dict = {}
@@ -264,11 +267,11 @@ def prepare(device=None) -> None:
 
 
 class CountedGraph:
-    """A ``torch.cuda.CUDAGraph`` whose replays add the kernel launches it
-    captured to ``launch_count`` and, given ``counts`` (a
-    ``collections.Counter`` counted in Python, such as a ``DataShard``'s
-    collectives), what its capture counted there; capturing launches
-    nothing and counts nothing.
+    """A ``torch.cuda.CUDAGraph`` whose replays count in ``replay_count``
+    and add the kernel launches it captured to ``launch_count`` and, given
+    ``counts`` (a ``collections.Counter`` counted in Python, such as a
+    ``DataShard``'s collectives), what its capture counted there; capturing
+    launches nothing and counts nothing.
 
     Every capture runs in ``torch.cuda.graph``'s ``"thread_local"`` error
     mode: an NCCL process group's watchdog thread queries CUDA events while
@@ -307,9 +310,10 @@ class CountedGraph:
                 self.counts.update(counts_before)
 
     def replay(self) -> None:
-        global launch_count
+        global launch_count, replay_count
         self.graph.replay()
         launch_count += self.launches
+        replay_count += 1
         if self.counts is not None:
             self.counts.update(self.counted)
 

@@ -27,7 +27,10 @@ share against it; per env step the kernels the device ran (a graph's
 included), the launches the host made (kernel, graph, memcpy and memset
 calls, ``cuda*`` of the runtime API and ``cu*`` below it, a ``cu*`` call
 inside a ``cuda*`` call counted once) and the operator calls (top-level ``aten`` ops); the 10
-device operations that took the most time. On the CPU the busy time is the
+device operations that took the most time; the 10 longest idle gaps of the
+window, each with the innermost program span (``utils/trace.py``, a range of
+the trace) open on the host at the gap's end: with ``--what train`` the
+epoch's ``epoch.*`` spans. On the CPU the busy time is the
 union of the top-level operator calls and there are no kernels. The plain physics step is ~80,000 operator calls, so on the CPU
 keep the window small (``--steps 1``, ``--epochs 1 --horizon 1``).
 """
@@ -51,6 +54,7 @@ from leibnizgym_tpu_torch.envs.trifinger.env import (
     env_reset,
     env_step,
 )
+from leibnizgym_tpu_torch.utils import trace as program_trace
 from leibnizgym_tpu_torch.utils.helpers import resolve_device, smi
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -64,6 +68,41 @@ def _union_ms(intervals) -> float:
             total += b - max(a, end)
             end = b
     return total / 1e3
+
+
+def idle_gaps(trace, busy_cats, top: int = 10) -> list:
+    """The ``top`` longest gaps between the union of the trace's events of
+    the categories ``busy_cats``, longest first, as (ms, the innermost
+    program span open at the gap's end: the ``user_annotation`` range of
+    latest start that holds it, or "(none)"; the end's trace time in us)."""
+    merged = []
+    for a, b in sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in trace
+                       if e.get("cat") in busy_cats):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    spans = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"]) for e in trace
+             if e.get("cat") == "user_annotation"]
+    gaps = sorted(((b0 - a1, b0) for (_, a1), (b0, _) in zip(merged, merged[1:])), reverse=True)
+    out = []
+    for length, end in gaps[:top]:
+        held = [(s, name) for s, e, name in spans if s <= end <= e]
+        out.append((length / 1e3, max(held)[1] if held else "(none)", end))
+    return out
+
+
+def _top_level_op(e) -> bool:
+    """An ``aten`` operator call on the host inside no other one (a program
+    span's range may hold it)."""
+    if e.device_type != torch.autograd.DeviceType.CPU or not e.name.startswith("aten::"):
+        return False
+    p = e.cpu_parent
+    while p is not None:
+        if p.name.startswith("aten::"):
+            return False
+        p = p.cpu_parent
+    return True
 
 
 HOST_LAUNCHES = frozenset({
@@ -157,7 +196,9 @@ def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
     wall_unprofiled = window()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities) as prof:
+        program_trace.refresh()  # the program's spans as ranges of the trace
         wall_ms = window()
+    program_trace.refresh()
     os.makedirs(trace_dir, exist_ok=True)
     mode = "graphed" if cuda and not eager and what != "physics" else "eager"
     path = os.path.join(trace_dir, f"{what}_{device.type}_{num_envs}"
@@ -166,8 +207,7 @@ def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
     with open(path) as f:
         trace = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
 
-    top_ops = [e for e in prof.events() if e.cpu_parent is None
-               and e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("aten::")]
+    top_ops = [e for e in prof.events() if _top_level_op(e)]
     dev_events = [e for e in trace if e.get("cat") in DEVICE_CATS]
     kernels = [e for e in dev_events if e["cat"] == "kernel"]
     if cuda:
@@ -184,6 +224,7 @@ def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
             per_op[e.name][1] += 1
     env_steps = env_steps_per_call * calls
     launched = host_launches(trace)
+    gaps = idle_gaps(trace, DEVICE_CATS if cuda else ("cpu_op",))
     out = {
         "what": what, "mode": mode, "device": str(device), "num_envs": num_envs,
         "env_steps": env_steps,
@@ -196,6 +237,7 @@ def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
         "ops_per_env_step": len(top_ops) / env_steps,
         "top": sorted(((name, ms, k) for name, (ms, k) in per_op.items()),
                       key=lambda x: -x[1])[:10],
+        "idle_gaps": [(ms, span) for ms, span, _ in gaps],
         "trace": path,
     }
     where = smi() if cuda else "cpu"
@@ -210,6 +252,8 @@ def profile_workload(what: str, num_envs: int = 8192, steps: int = 20,
           f"top_level_ops={len(top_ops)} host_launches={launched}", flush=True)
     for name, ms, k in out["top"]:
         print(f"{where} profile what={what} top ms={ms:.3f} calls={k} op={name[:120]}", flush=True)
+    for ms, span, _ in gaps:
+        print(f"{where} profile what={what} idle_gap ms={ms:.3f} span={span}", flush=True)
     if cuda and not kernels:
         cats = sorted({str(e.get("cat")) for e in trace})
         print(f"profile: the trace holds no kernel (categories {cats}); the device was not "

@@ -2,7 +2,8 @@
 GPU): the captured epoch (``learning/graphs.py``; alone, as the one rank of
 an NCCL group and with ``nan_telemetry``), the captured play policy and env
 step (``envs/trifinger/env.py``; the policy also as the one rank of an
-NCCL group) against the eager functions fed the same draws. No JAX here,
+NCCL group) against the eager functions fed the same draws; the epoch's
+graph replays and device marks (``utils/trace.py``). No JAX here,
 so it runs on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py
@@ -144,6 +145,44 @@ def test_nccl_rank_graphed_epoch_on_the_card(dev, tmp_path):
         assert epoch.graphs is not None and alone.graphs is not None
     finally:
         dist.destroy_process_group()
+
+
+def test_graphed_epoch_replays_and_device_marks_on_the_card(dev, monkeypatch):
+    """Inside an ``epoch`` span, as ``Runner.train`` calls it: the warm-up
+    epoch counts no replay and a replayed one 2 + ``ac_steps`` +
+    ``cv_steps``; each epoch's four device marks (the warm-up's on its side
+    stream) resolve once its metrics have been read back, in order; no mark
+    is recorded while the graphs are captured."""
+    from leibnizgym_tpu_torch.learning.runner import fetch_metrics
+    from leibnizgym_tpu_torch.utils import trace
+
+    marks = []
+    mark = trace.mark
+
+    def watched(phase, cuda):
+        marks.append((phase, torch.cuda.is_current_stream_capturing()))
+        mark(phase, cuda)
+
+    monkeypatch.setattr(trace, "mark", watched)
+    env = _env(dev)
+    cfg = tppo.PPOConfig(minibatch_size=256, cv_minibatch_size=256)
+    ts = tppo.init_train_state(cfg, env.static, env.params, 0)
+    epoch = tgraphs.GraphedEpoch()
+    trace.sync_clock()
+    for e in range(3):
+        marks.clear()
+        before = cuda_engine.replay_count
+        with trace.span("epoch") as span:
+            metrics = epoch(cfg, env.static, env.params, ts)
+        replays = cuda_engine.replay_count - before
+        assert replays == (0 if e == 0 else 2 + epoch.ac_steps + epoch.cv_steps), (e, replays)
+        assert marks == [(p, False) for p in ("start", "rollout", "gae", "update")], (e, marks)
+        fetch_metrics(metrics)
+        trace.resolve(span)
+        m = span.marks_ms
+        assert m is not None and list(m) == ["start", "rollout", "gae", "update"], e
+        assert 0 <= m["start"] < m["rollout"] < m["gae"] < m["update"], (e, m)
+    assert epoch.graphs is not None
 
 
 def test_graphed_nan_telemetry_epoch_on_the_card(dev):
