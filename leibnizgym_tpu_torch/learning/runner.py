@@ -58,7 +58,9 @@ Tracing (``utils/trace.py``, in memory; ranges in a ``torch.profiler``
 trace while one records): ``train`` is a ``runner.train`` span, each
 host-loop iteration a ``runner.iteration`` (its ``epoch``) holding
 ``epoch`` (the epoch function; ``replays``: its graph replays, from
-``cuda_engine.replay_count``), ``runner.snapshot``, ``runner.readback``
+``cuda_engine.replay_count``; as a rank of a process group ``collectives``:
+the change of its ``DataShard.counts`` by kind, which a graph's replays add
+to), ``runner.snapshot``, ``runner.readback``
 (``read``: the epoch read back) and ``runner.process`` with
 ``runner.summary``, ``runner.curriculum`` and ``runner.checkpoint``
 (``name``; every ``_write``); Python's collections of generations 1 and 2
@@ -392,6 +394,7 @@ class Runner:
         # nan_telemetry needs the state just before the first bad epoch
         depth = 1 if cfg.nan_telemetry else max(1, cfg.host_pipeline_depth)
         pending = collections.deque()  # (epoch, device metrics, that epoch's snapshot)
+        shard = self.shard
         prev_state = None  # nan_telemetry: the state before the running epoch
         self._best_reward = -float("inf")
         last_t = time.time()
@@ -486,8 +489,11 @@ class Runner:
                         prev_state = self.nan_dump_payload()
                     with trace.span("epoch") as epoch_span:
                         replays = cuda_engine.replay_count
+                        issued = collections.Counter(shard.counts) if shard is not None else None
                         metrics = self._train_iter(cfg, self.static, self.env_params, self.ts)
                         epoch_span.attrs["replays"] = cuda_engine.replay_count - replays
+                        if shard is not None:
+                            epoch_span.attrs["collectives"] = dict(shard.counts - issued)
                     # at depth 1 the epoch is processed now, on the current state
                     snapshot = None
                     if depth > 1:

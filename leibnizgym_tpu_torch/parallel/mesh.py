@@ -20,7 +20,10 @@ A ``DataShard`` always issues its collectives, at ``W = 1`` too; the plain
 single-process path passes no shard and issues none. ``DataShard.counts``
 counts the collectives each helper issues; inside a CUDA graph the helper
 counts once at capture, and ``ops/cuda_engine.py``'s ``CountedGraph`` takes
-that back and adds it at each replay.
+that back and adds it at each replay. ``DataShard.seconds`` sums the host
+time inside each collective call: under gloo, which runs its collectives
+on the host, the collective itself with its wait for the peers; under
+NCCL only its enqueue, and a replay adds nothing.
 
 The helpers issue only device work on the current stream (no read back to
 the host, no tensor made from host data), so that an NCCL shard's
@@ -39,10 +42,13 @@ import dataclasses
 import datetime
 import gc
 import os
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from leibnizgym_tpu_torch.utils import trace
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -74,6 +80,7 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
             url = f"tcp://{url}"
         dist.init_process_group(backend, init_method=url, world_size=int(num_processes),
                                 rank=int(process_id), **kw)
+    trace.TRACER.rank = dist.get_rank()
     return dist.get_rank(), dist.get_world_size()
 
 
@@ -87,6 +94,7 @@ def shutdown_distributed() -> None:
     before."""
     gc.collect()
     dist.destroy_process_group()
+    trace.TRACER.rank = 0
 
 
 def local_rank() -> int:
@@ -99,13 +107,15 @@ def local_rank() -> int:
 class DataShard:
     """This rank's part of the env axis: rows ``[lo, hi)`` of ``n_global``,
     and the process group its collectives run in (None: the default group).
-    ``counts`` counts the collectives issued through it, by kind."""
+    ``counts`` counts the collectives issued through it, by kind, and
+    ``seconds`` the host seconds inside their calls (module docstring)."""
 
     rank: int
     world: int
     n_global: int
     group: Optional[dist.ProcessGroup] = None
     counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    seconds: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     def __post_init__(self):
         if self.n_global % self.world:
@@ -175,9 +185,16 @@ def shard_batch(tree, shard: Optional[DataShard]):
 # ---------------------------------------------------------------------------
 
 
+def _issue(shard: DataShard, kind: str, collective, *args, **kwargs) -> None:
+    """``collective(*args, **kwargs)`` counted and timed under ``kind``."""
+    shard.counts[kind] += 1
+    t0 = time.perf_counter()
+    collective(*args, **kwargs)
+    shard.seconds[kind] += time.perf_counter() - t0
+
+
 def _all_reduce(buf: torch.Tensor, shard: DataShard, op=dist.ReduceOp.SUM):
-    shard.counts["all_reduce"] += 1
-    dist.all_reduce(buf, op=op, group=shard.group)
+    _issue(shard, "all_reduce", dist.all_reduce, buf, op=op, group=shard.group)
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], shard: DataShard) -> None:
@@ -225,8 +242,7 @@ def all_gather_envs(x: torch.Tensor, shard: DataShard) -> torch.Tensor:
             "time-sliced layout gathers nothing)")
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(shard.world)]
-    shard.counts["all_gather"] += 1
-    dist.all_gather(parts, x, group=shard.group)
+    _issue(shard, "all_gather", dist.all_gather, parts, x, group=shard.group)
     return torch.cat(parts, dim=1)
 
 
@@ -234,9 +250,9 @@ def broadcast_(tensors: Sequence[torch.Tensor], shard: DataShard):
     """Overwrite ``tensors`` in place with rank 0's, in one broadcast of a
     flat buffer of their common dtype."""
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    shard.counts["broadcast"] += 1
-    dist.broadcast(flat, src=dist.get_global_rank(shard.group, 0)
-                   if shard.group is not None else 0, group=shard.group)
+    _issue(shard, "broadcast", dist.broadcast, flat,
+           src=dist.get_global_rank(shard.group, 0) if shard.group is not None else 0,
+           group=shard.group)
     with torch.no_grad():
         for t, x in zip(tensors, flat.split([t.numel() for t in tensors])):
             t.copy_(x.view_as(t))

@@ -3,9 +3,11 @@ kept in memory.
 
 ``span(name, **attrs)`` is a context manager. Each span records an id and
 its parent's (spans nest per thread), its name, the host-loop epoch it
-belongs to, its thread, its start and end, its attributes and, for the host
-loop's long spans (``CPU_TIMED``), the thread's CPU time at both ends
-(``time.thread_time_ns``). Durations come from the
+belongs to, its process's rank in the process group (0 alone: ``rank``,
+which ``parallel/mesh.py`` ``initialize_distributed`` sets and each
+``sync_clock`` reads), its thread, its start and end, its attributes and,
+for the host loop's long spans (``CPU_TIMED``), the thread's CPU time at
+both ends (``time.thread_time_ns``). Durations come from the
 monotonic clock; starts and ends are placed on the clock that
 ``torch.profiler`` gives host events (``c10::getTime``: CLOCK_REALTIME ns on
 Linux) through an offset that ``sync_clock`` takes, at each
@@ -56,6 +58,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["Span", "Tracer", "Window", "TRACER", "span", "iteration", "mark", "resolve",
            "refresh", "sync_clock", "gc_spans", "records", "window"]
@@ -81,12 +84,12 @@ class Span:
     span's ``marks_ms`` holds its phase marks once resolved, in milliseconds
     since its ``Runner.train`` call's origin."""
 
-    __slots__ = ("tracer", "id", "parent", "name", "epoch", "thread", "start_ns", "end_ns",
-                 "cpu_start_ns", "cpu_end_ns", "attrs", "marks", "marks_ms", "origin",
+    __slots__ = ("tracer", "id", "parent", "name", "epoch", "rank", "thread", "start_ns",
+                 "end_ns", "cpu_start_ns", "cpu_end_ns", "attrs", "marks", "marks_ms", "origin",
                  "stream", "offset", "range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
-        self.tracer, self.name, self.attrs = tracer, name, attrs
+        self.tracer, self.name, self.attrs, self.rank = tracer, name, attrs, tracer.rank
         self.end_ns = self.marks = self.marks_ms = self.origin = self.stream = None
 
     def __enter__(self) -> "Span":
@@ -143,6 +146,7 @@ class Span:
 
     def __repr__(self) -> str:
         return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, epoch={self.epoch}, "
+                f"rank={self.rank}, "
                 f"wall_ms={self.wall_ms if self.end_ns is not None else None}, {self.attrs})")
 
 
@@ -177,6 +181,7 @@ class Tracer:
         self._group: Optional[list] = None  # the open iteration's spans
         self._epoch = None
         self._ranges = False
+        self.rank = 0  # this process's rank in the process group
         self._offset = time.time_ns() - _wall_ns()
         self._origin = None  # the first mark since sync_clock
         self._free_events: list = []
@@ -200,8 +205,10 @@ class Tracer:
         self._ranges = bool(torch._C._autograd._profiler_enabled())
 
     def sync_clock(self) -> None:
-        """Take the offset from the monotonic clock to the profiler's; the
-        next mark becomes the origin of the marks that follow."""
+        """Take the offset from the monotonic clock to the profiler's and
+        this process's rank; the next mark becomes the origin of the marks
+        that follow."""
+        self.rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
         self._offset = time.time_ns() - _wall_ns()
         self._origin = None
         self.refresh()

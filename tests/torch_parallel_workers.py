@@ -369,3 +369,76 @@ def graph_bodies(num_envs: int, epochs: int = 3) -> dict:
         policy["deterministic" if deterministic else "stochastic"] = same
     out["policy"] = policy
     return out
+
+
+def rank_value(x: float) -> dict:
+    """This rank's place in the group and the sum over the ranks of
+    ``x * (rank + 1)``."""
+    import torch.distributed as dist
+
+    t = torch.tensor([x * (dist.get_rank() + 1)])
+    dist.all_reduce(t)
+    return {"rank": dist.get_rank(), "world": dist.get_world_size(), "sum": float(t)}
+
+
+def fail_on_rank(rank: int) -> None:
+    """Rank ``rank`` raises; every other child waits in a collective that
+    the failed rank never joins."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == rank:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    dist.all_reduce(torch.ones(1))
+
+
+def per_process_runner(num_envs: int, epochs: int, logdir: str, graphed: bool) -> dict:
+    """A ``Runner`` of the D1 config (horizon 4, 2 + 2 mini-epochs) trained
+    ``epochs`` epochs as one rank of the current process group (alone
+    without one), at rl_games' per-process sizes: ``num_envs`` envs and a
+    minibatch of ``num_envs`` rows on each of W ranks, so the port's global
+    ``num_instances`` = ``num_actors`` = minibatch = W x ``num_envs``.
+    ``graphed``: the epoch is ``GraphedEpoch``'s bodies (eager off the
+    card). Returns the minibatch layout, each epoch's collectives as the
+    ``epoch`` span has them and as the shard's counts changed over the
+    epoch function's call, the ranks of the spans the call recorded, and
+    the learner (parameters, Adam states, lr)."""
+    import collections
+
+    import torch.distributed as dist
+
+    from leibnizgym_tpu_torch.learning.runner import Runner
+    from leibnizgym_tpu_torch.utils import trace
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world * num_envs
+    cfg = d1_config(n, {"minibatch_size": n, "cv_minibatch_size": n})
+    runner = Runner(copy.deepcopy(cfg["gym"]), cfg["rlg"]["params"], logdir=logdir, seed=0,
+                    device="cpu")
+    pcfg, shard = runner.ppo_cfg, runner.shard
+    if graphed:
+        runner._train_iter = graphs.GraphedEpoch()
+    epoch_fn, issued = runner._train_iter, []
+
+    def counted(*args, **kwargs):
+        before = collections.Counter(shard.counts) if shard is not None else None
+        metrics = epoch_fn(*args, **kwargs)
+        issued.append(dict(shard.counts - before) if shard is not None else None)
+        return metrics
+
+    runner._train_iter = counted
+    known = {s.id for s in trace.records()}
+    runner.train(max_epochs=epochs)
+    spans = [s for s in trace.records() if s.id not in known]
+    ts = runner.ts
+    learner = list(ts.learner_tensors())
+    for opt in (ts.ac_opt, ts.cv_opt):
+        learner += list(opt.mu) + list(opt.nu) + [opt.count]
+    return {
+        "rank": dist.get_rank() if dist.is_initialized() else None,
+        "layout": [list(ppo.minibatch_layout(pcfg.shuffle_minibatches, pcfg.horizon, n, size))
+                   for size in (pcfg.minibatch_size, pcfg.cv_minibatch_size)],
+        "issued": issued,
+        "span_collectives": [s.attrs.get("collectives") for s in spans if s.name == "epoch"],
+        "span_ranks": sorted({s.rank for s in spans}),
+        "learner": [x.detach().clone() for x in learner],
+    }

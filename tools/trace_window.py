@@ -76,13 +76,13 @@ def build(cell: harness.Cell, seed: int, device: str):
 
 
 def rows_of(w: trace.Window) -> list:
-    """Per iteration of the window: wall and CPU ms of the iteration and of
-    each span name under it (summed), the off-CPU ms outside the read-back,
-    and the device phases from the epoch's marks."""
+    """Per iteration of the window: its process's rank, wall and CPU ms of
+    the iteration and of each span name under it (summed), the off-CPU ms
+    outside the read-back, and the device phases from the epoch's marks."""
     rows = []
     for it, under in w.iterations:
-        row = {"epoch": it.attrs["epoch"], "t_ns": it.start_ns, "wall": it.wall_ms,
-               "cpu": it.cpu_ms, "spans": {}}
+        row = {"epoch": it.attrs["epoch"], "rank": it.rank, "t_ns": it.start_ns,
+               "wall": it.wall_ms, "cpu": it.cpu_ms, "spans": {}}
         for s in under:
             row["spans"][s.name] = row["spans"].get(s.name, 0.0) + s.wall_ms
             if s.name == "epoch":
