@@ -55,7 +55,6 @@ from leibnizgym_tpu_torch.envs.trifinger.rewards import (
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops import engine as reference_engine
 from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda, physics_step_plain
-from leibnizgym_tpu_torch.ops.engine_v2 import fingertip_components_v2
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
 from leibnizgym_tpu_torch.parallel.mesh import shard_batch
 from leibnizgym_tpu_torch.utils.math import (
@@ -694,9 +693,10 @@ def _simulate(static: EnvStatic, physics: PhysicsState, tau: torch.Tensor,
 
 
 def _fingertip_components(physics: PhysicsState):
-    q_cols = tuple(physics.q[:, i] for i in range(9))
-    qd_cols = tuple(physics.qd[:, i] for i in range(9))
-    return fingertip_components_v2(q_cols, qd_cols)
+    """Per finger (pos3, quat4, linvel3, angvel3) of (N,) columns: one
+    launch of the fingertip kernel on the card, the plain version on the
+    CPU (``cuda_engine.fingertip_components_cuda``)."""
+    return cuda_engine.fingertip_components_cuda(physics.q, physics.qd)
 
 
 def _object_components(physics: PhysicsState):
@@ -1253,8 +1253,8 @@ class _EnvGraphs:
     The first call of each (and the first after the env's ``params`` object,
     or the layout of the inputs, changes) runs the function eagerly on a side
     stream, as the warm-up before capture, and returns that result; it then
-    captures the graph, and later calls replay it. The physics kernel's
-    launches inside a replay count in ``cuda_engine.launch_count``."""
+    captures the graph, and later calls replay it. The physics and fingertip
+    kernels' launches inside a replay count in ``cuda_engine.launch_count``."""
 
     def __init__(self, env: "TrifingerEnv"):
         self.env = env

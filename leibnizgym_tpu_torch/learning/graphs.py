@@ -9,8 +9,8 @@ same epoch from the same draws, alone, as one rank of an NCCL process group
 share one memory pool:
 
 - ``rollout``: the whole horizon (policy, action noise, env step with its
-  physics kernel launch, episode bookkeeping), then the new carry written
-  into the learner's carry tensors in place;
+  physics and fingertip kernel launches, episode bookkeeping), then the new
+  carry written into the learner's carry tensors in place;
 - ``gae``: the last value, GAE, advantage normalisation (under a shard its
   two all-reduces) and the minibatch sources (under a shard and the
   global-shuffle layout, the trajectory's all-gather), and the two step

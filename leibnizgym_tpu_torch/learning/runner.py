@@ -58,7 +58,9 @@ Tracing (``utils/trace.py``, in memory; ranges in a ``torch.profiler``
 trace while one records): ``train`` is a ``runner.train`` span, each
 host-loop iteration a ``runner.iteration`` (its ``epoch``) holding
 ``epoch`` (the epoch function; ``replays``: its graph replays, from
-``cuda_engine.replay_count``; as a rank of a process group ``collectives``:
+``cuda_engine.replay_count``; ``launches``: its hand-written kernels'
+launches, from ``cuda_engine.launch_count``, a replay adding those its
+graph captured; as a rank of a process group ``collectives``:
 the change of its ``DataShard.counts`` by kind, which a graph's replays add
 to), ``runner.snapshot``, ``runner.readback``
 (``read``: the epoch read back) and ``runner.process`` with
@@ -489,9 +491,11 @@ class Runner:
                         prev_state = self.nan_dump_payload()
                     with trace.span("epoch") as epoch_span:
                         replays = cuda_engine.replay_count
+                        launches = cuda_engine.launch_count
                         issued = collections.Counter(shard.counts) if shard is not None else None
                         metrics = self._train_iter(cfg, self.static, self.env_params, self.ts)
                         epoch_span.attrs["replays"] = cuda_engine.replay_count - replays
+                        epoch_span.attrs["launches"] = cuda_engine.launch_count - launches
                         if shard is not None:
                             epoch_span.attrs["collectives"] = dict(shard.counts - issued)
                     # at depth 1 the epoch is processed now, on the current state

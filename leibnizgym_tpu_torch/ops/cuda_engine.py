@@ -1,32 +1,39 @@
-"""The physics step as a hand-written CUDA kernel (counterpart of
-``ops/pallas_engine.py``).
+"""The physics step and the fingertip kinematics as hand-written CUDA
+kernels (the first the counterpart of ``ops/pallas_engine.py``).
 
 ``csrc/physics_step.cu`` advances every env through one control step on the
 component-major (C, N) layout, 32 envs per block (4 warps: the solver rows
 are built once per substep by the team and swept by one lane per env):
 state (31, N), params (40, N), tau (9, N) in; state (31, N) and tip impulse
-sums (18, N) out. It is built with nvcc at first use into
-``build/leibnizgym_tpu_torch/<hash>/`` (the hash covers the source and the
-flags) and loaded with ctypes.
+sums (18, N) out. Its second kernel, ``fingertip_state_kernel``, computes
+``engine_v2.fingertip_components_v2`` in one launch, one thread per env:
+joint positions and velocities (9, N) each in (rows 0-8 and 9-17 of the
+packed state, read in place), (39, N) out. Both are built with nvcc at
+first use into ``build/leibnizgym_tpu_torch/<hash>/`` (the hash covers the
+source and the flags), one library, loaded with ctypes.
 
-Dispatch is by the tensors' device and nothing else: ``physics_step_cuda`` on
-CUDA tensors launches the kernel (or raises), on CPU tensors it runs the
-plain PyTorch version ``physics_step_plain`` (``ops/engine_v2.py``).
-``launch_count`` counts kernel launches, those inside CUDA graphs too: a
-graph captured through ``CountedGraph`` remembers how many launches it
-captured, and each replay adds that many. ``replay_count`` counts the
-replays of every ``CountedGraph`` (``Runner.train``'s ``epoch`` span carries
-an epoch's share, ``utils/trace.py``). ``prepare`` builds the kernel and
-raises its shared-memory cap before any capture; the constants struct, which
-a graph keeps by value, is built once per ``(cfg, dt)``.
+Dispatch is by the tensors' device and nothing else: ``physics_step_cuda``
+and ``fingertip_components_cuda`` on CUDA tensors launch their kernel (or
+raise), on CPU tensors they run the plain PyTorch versions
+``physics_step_plain`` and ``fingertip_components_v2``
+(``ops/engine_v2.py``). ``launch_count`` counts the launches of both
+kernels, those inside CUDA graphs too: a graph captured through
+``CountedGraph`` remembers how many launches it captured, and each replay
+adds that many. ``replay_count`` counts the replays of every
+``CountedGraph`` (``Runner.train``'s ``epoch`` span carries an epoch's
+share of both, ``utils/trace.py``). ``prepare`` builds the kernels and
+raises the physics kernel's shared-memory cap before any capture; the
+constants struct, which a graph keeps by value, is built once per
+``(cfg, dt)``.
 
-The kernel's bound is computed here the same way whatever implements it:
-``step_flops(cfg)`` counts the elementwise operations of one control step of
-the plain version, which follows the reference's ``_substep_fields`` formula
-by formula (``tests/test_torch_cuda_bound.py`` holds it to a walk of the
-reference's jaxpr); ``step_bytes(n)`` counts each input read once and each
-output written once; ``bound_ms`` is the larger of the two over the card's
-published float32 and memory rates.
+The physics kernel's bound is computed here the same way whatever
+implements it: ``step_flops(cfg)`` counts the elementwise operations of one
+control step of the plain version, which follows the reference's
+``_substep_fields`` formula by formula (``tests/test_torch_cuda_bound.py``
+holds it to a walk of the reference's jaxpr); ``step_bytes(n)`` counts each
+input read once and each output written once; ``bound_ms`` is the larger of
+the two over the card's published float32 and memory rates. The fingertip
+kernel is bound by its bytes, ``tip_bytes(n)``.
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ __all__ = [
     "pack_state", "pack_params", "physics_step_cuda", "physics_step_plain",
     "step_packed_cuda", "launch_count", "replay_count", "build", "build_info", "kernel_consts",
     "prepare", "CountedGraph", "occupancy", "step_flops", "step_chain", "step_bytes",
-    "bound_ms", "ENVS_PER_BLOCK",
+    "bound_ms", "ENVS_PER_BLOCK", "fingertip_state_cuda", "fingertip_components_cuda",
+    "TIP_ROWS", "tip_bytes",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,6 +87,9 @@ NVCC_FLAGS = (
 # is 256 blocks, two per SM on 128 of the 132 SMs, all resident at once (see
 # the source note)
 ENVS_PER_BLOCK = 32
+# the fingertip kernel's output rows: per finger position 3, quaternion 4,
+# linear velocity 3, angular velocity 3 (fingertip_components_v2's order)
+TIP_ROWS = 39
 
 # NVIDIA H100 SXM, published: float32 outside the tensor cores, HBM3 rate,
 # and dense bfloat16 on the tensor cores (bench.py's PPO matmul MFU)
@@ -193,9 +204,12 @@ def _nvcc() -> str:
     return path
 
 
-def _parse_ptxas(log: str) -> dict:
-    """Registers, spills and static shared memory of physics_step_kernel
-    from `-Xptxas -v`."""
+def _parse_ptxas(log: str, kernel: str = "physics_step_kernel") -> dict:
+    """Registers, spills and static shared memory of ``kernel`` from
+    `-Xptxas -v` (the whole log where no entry function of that name is
+    in it)."""
+    entries = log.split("Compiling entry function '")[1:]
+    log = next((e for e in entries if kernel in e.split("'", 1)[0]), log)
     info = {}
     m = re.search(r"Used (\d+) registers", log)
     if m:
@@ -244,6 +258,10 @@ def build() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.POINTER(_KernelConsts), ptr,
     ]
     lib.leibniz_physics_step.restype = ctypes.c_int
+    lib.leibniz_fingertip_state.argtypes = [
+        ptr, ptr, ptr, ctypes.c_int, ctypes.POINTER(_KernelConsts), ptr,
+    ]
+    lib.leibniz_fingertip_state.restype = ctypes.c_int
     lib.leibniz_consts_size.restype = ctypes.c_int
     lib.leibniz_physics_step_prepare.restype = ctypes.c_int
     if lib.leibniz_consts_size() != ctypes.sizeof(_KernelConsts):
@@ -251,7 +269,8 @@ def build() -> ctypes.CDLL:
     with open(log_path) as f:
         log = f.read()
     build_info = dict(_parse_ptxas(log), seconds=time.perf_counter() - t0,
-                      library=lib_path, log=log_path)
+                      library=lib_path, log=log_path,
+                      fingertip=_parse_ptxas(log, "fingertip_state_kernel"))
     _lib = lib
     return lib
 
@@ -388,6 +407,57 @@ def physics_step_plain(state: PhysicsState, tau: torch.Tensor, params: ScenePara
     return ev2.physics_step_v2(state, tau, params, cfg, dt)
 
 
+@functools.lru_cache(maxsize=1)
+def _tip_consts():
+    """The fingertip kernel's constants. It reads the robot tables alone
+    (``o2``, ``o3``, ``tip``, ``mount_z``, ``mount_c``, ``mount_s``); the
+    solver fields are the default config's, unread."""
+    return kernel_consts(SolverConfig(), 0.02)
+
+
+def fingertip_state_cuda(q9: torch.Tensor, qd9: torch.Tensor) -> torch.Tensor:
+    """Launch the fingertip kernel on (9, N) rows of joint positions and
+    velocities (CUDA, float32, contiguous); returns (TIP_ROWS, N): finger by
+    finger position 3, quaternion 4, linear velocity 3, angular velocity 3.
+    Raises on anything the kernel does not take."""
+    global launch_count
+    device = q9.device
+    if device.type != "cuda":
+        raise ValueError(f"fingertip_state_cuda needs CUDA tensors, got {device}")
+    n = q9.shape[-1]
+    _check("q", q9, 9, n, device)
+    _check("qd", qd9, 9, n, device)
+    lib = build()
+    out = torch.empty((TIP_ROWS, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.leibniz_fingertip_state(q9.data_ptr(), qd9.data_ptr(), out.data_ptr(), n,
+                                         ctypes.byref(_tip_consts()), stream)
+    if rc != 0:
+        raise RuntimeError(f"fingertip_state kernel launch failed: CUDA error {rc}")
+    launch_count += 1
+    return out
+
+
+def fingertip_components_cuda(q: torch.Tensor, qd: torch.Tensor):
+    """The fingertips' components from (N, 9) joint positions and
+    velocities, as ``fingertip_components_v2`` returns them: a 3-tuple (one
+    per finger) of (pos3, quat4, linvel3, angvel3) tuples of (N,) columns.
+    CUDA tensors take one launch of the kernel, whose output rows are the
+    columns (``q.T`` of the packed state's views is read in place); CPU
+    tensors take ``fingertip_components_v2``."""
+    if not q.is_cuda:
+        return ev2.fingertip_components_v2(tuple(q[:, i] for i in range(9)),
+                                           tuple(qd[:, i] for i in range(9)))
+    out = fingertip_state_cuda(q.T.contiguous(), qd.T.contiguous())
+    rows = TIP_ROWS // 3
+    return tuple(
+        tuple(tuple(out[rows * f + a + i] for i in range(k))
+              for a, k in ((0, 3), (3, 4), (7, 3), (10, 3)))
+        for f in range(3)
+    )
+
+
 # ---------------------------------------------------------------------------
 # The bound: operations and bytes of one control step
 # ---------------------------------------------------------------------------
@@ -473,6 +543,14 @@ def step_bytes(n: int) -> int:
     and tau (9) read once, state (31) and impulse sums (18) written once,
     float32."""
     return 4 * n * (STATE_ROWS + PARAM_ROWS + 9 + STATE_ROWS + WRENCH_ROWS)
+
+
+def tip_bytes(n: int) -> int:
+    """Bytes one fingertip launch must move for n envs: joint positions and
+    velocities (9 + 9) read once, TIP_ROWS written once, float32 (228 an
+    env). They bound it: its ~1,150 operations an env take a quarter of
+    their time at the card's float32 rate."""
+    return 4 * n * (9 + 9 + TIP_ROWS)
 
 
 def bound_ms(cfg: SolverConfig, n: int) -> tuple:

@@ -41,7 +41,9 @@ card; ``ppo_epoch*_eager_ms``: ``ppo.train_iteration``), the rollout
 ``ppo_rollout_eager_ms``: ``ppo.rollout`` of ``--horizon`` steps from one
 carry, the policy, central value and env step) and the update path (epoch
 minus rollout). Prints one JSON line, with ``device`` (the ``nvidia-smi``
-name and power limit, ``cpu`` on the CPU) and ``kernel_launches``.
+name and power limit, ``cpu`` on the CPU) and ``kernel_launches`` (the
+hand-written kernels' launches: the physics kernel's, and on the card the
+fingertip kernel's once per env reset and step).
 """
 
 from __future__ import annotations

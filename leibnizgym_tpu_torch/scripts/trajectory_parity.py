@@ -10,7 +10,7 @@
 ``dump`` runs a D1 torque rollout with uniform random actions in [-1, 1] on
 the device (``cuda:0`` unless ``--device cpu``; on the card under
 ``--engine pallas`` the reset and every step launch the physics kernel
-once) and writes per-step arrays of
+once, and on the card under any engine the fingertip kernel once) and writes per-step arrays of
 shape (T, N, ...): q (T,N,9), qd (T,N,9), cube_pos (T,N,3), cube_quat
 (T,N,4), cube_linvel (T,N,3), cube_angvel (T,N,3), obs (T,N,obs), reward
 (T,N), action (T,N,A), and ``meta`` (a JSON string: the rollout's settings,

@@ -7,7 +7,8 @@
 Steps ``NUM_ENVS`` (default 8192) env instances (D1, torque, 2 substeps)
 with uniform random torque actions in 50-step chunks and prints env-steps/s
 after every chunk until Ctrl-C. The env runs on ``DEVICE`` (default
-``cuda:0``, where each step launches the physics kernel once); the first
+``cuda:0``, where each step launches the physics kernel and the fingertip
+kernel once each); the first
 chunk is a warm-up.
 """
 

@@ -18,7 +18,13 @@ imports JAX, so on such a machine run it without the conftest:
   non-finite in the same rows and envs of the kernel's output and impulses
   as of the plain version's (the kernel's max / min propagate NaN);
 - one learner step (actor-critic and central value) on the card against the
-  same step on the CPU, as chip_smoke.py phase 5 holds it.
+  same step on the CPU, as chip_smoke.py phase 5 holds it;
+- the fingertip kernel (``fingertip_state_cuda``) against
+  ``fingertip_components_v2`` in float32 at 8192 envs and a ragged N, within
+  TIP_TOL; one fingertip launch per eager env step beside the physics
+  kernel's, the plain version never on CUDA tensors, one fingertip launch
+  in a captured env step; its wrapper refuses a wrong dtype, shape, layout
+  or device.
 """
 
 import importlib.util
@@ -28,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from leibnizgym_tpu_torch.envs.trifinger import env as tenv
 from leibnizgym_tpu_torch.models import trifinger as tf_model
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops import engine_v2
@@ -164,3 +171,102 @@ def test_learner_step_on_card_matches_cpu(dev):
     spec.loader.exec_module(chip_smoke)
     rel, worst, within, lr_same, ok = chip_smoke.learner_card_vs_cpu(dev)
     assert ok, (rel, worst, within, lr_same)
+
+
+# Fingertip kernel against the plain version, both float32 on the card,
+# |kernel - plain| <= atol + rtol * |plain|: the same formulas in the same
+# order, but nvcc contracts a*b+c into FMAs and the device sinf/cosf differ
+# from PyTorch's by an ulp. Each output is a sum of a few dozen products of
+# O(1) terms (positions ~0.3 m, velocities a few m/s and rad/s at these
+# joint speeds) with no solve to amplify the rounding, so the two differ by
+# a few ulps of 1: at most 9.5e-7 (an angular velocity; positions 1.2e-7,
+# quaternions 1.8e-7) over ten seeds of 8192 envs on an H100, both spreads
+# below, and 1.9e-6 on a D1 state after a rollout (faster joints), where the
+# relative term covers it. The seeded states lie off the
+# boundaries of the Shepperd selection, where a rounding could make the two
+# pick candidates of opposite sign (the same orientation).
+TIP_TOL = (2e-6, 2e-6)
+
+
+def _tip_inputs(dev, n, spread, seed):
+    rng = np.random.default_rng(seed)
+    if spread == "env":  # around the default pose, as the env's states lie
+        q = np.tile(tf_model.JOINT_POS_DEFAULT, 3) + rng.uniform(-0.4, 0.4, (n, 9))
+    else:  # a full turn of every joint: every branch of the selection
+        q = rng.uniform(-np.pi, np.pi, (n, 9))
+    qd = rng.uniform(-3.0, 3.0, (n, 9))
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    return t(q), t(qd)
+
+
+@pytest.mark.parametrize("n,spread", [(8192, "env"), (8192, "full_turn"), (1000, "full_turn")])
+def test_fingertip_kernel_matches_plain_on_card(dev, n, spread):
+    """All 39 components; 1000 envs leave the last 64-env block ragged."""
+    q, qd = _tip_inputs(dev, n, spread, seed=n)
+    out = cuda_engine.fingertip_state_cuda(q.T.contiguous(), qd.T.contiguous())
+    plain = engine_v2.fingertip_components_v2(tuple(q[:, i] for i in range(9)),
+                                              tuple(qd[:, i] for i in range(9)))
+    ref = torch.stack([c for finger in plain for part in finger for c in part])
+    torch.cuda.synchronize()
+    atol, rtol = TIP_TOL
+    err = (out - ref).abs()
+    assert out.shape == ref.shape == (cuda_engine.TIP_ROWS, n)
+    assert bool((err <= atol + rtol * ref.abs()).all()), float(err.max())
+
+
+def test_env_step_launches_one_fingertip_kernel(dev, monkeypatch):
+    """An eager env step adds two launches (the physics kernel's and the
+    fingertip kernel's, one call of its wrapper) and never runs the plain
+    fingertip version; the captured env step holds both, one each, and a
+    replay adds them without calling the wrapper."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain fingertip version ran on CUDA tensors")
+
+    calls = []
+    launch = cuda_engine.fingertip_state_cuda
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return launch(*args)
+
+    monkeypatch.setattr(engine_v2, "fingertip_components_v2", refuse)
+    monkeypatch.setattr(cuda_engine, "fingertip_state_cuda", counted)
+    n = 64
+    env = tenv.TrifingerEnv(config={"num_instances": n, "command_mode": "torque",
+                                    "asymmetric_obs": True}, device=dev, verbose=False)
+    st = env.static
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = tenv.env_reset(st, env.params, *tenv.draw_init_randoms(st, gen, n, dev))
+    for t in range(3):
+        action = torch.rand((n, st.action_dim), generator=gen, device=dev) * 2.0 - 1.0
+        before, seen = cuda_engine.launch_count, len(calls)
+        state = tenv.env_step(st, env.params, state, action,
+                              tenv.draw_step_randoms(st, gen, n, dev))[0]
+        assert cuda_engine.launch_count - before == 2 and len(calls) - seen == 1, t
+    env.reset(tenv.draw_init_randoms(st, gen, n, dev))
+    for t in range(3):  # warm-up and capture, then replays
+        action = torch.rand((n, st.action_dim), generator=gen, device=dev) * 2.0 - 1.0
+        before, seen = cuda_engine.launch_count, len(calls)
+        env.step(action, tenv.draw_step_randoms(st, gen, n, dev))
+        assert cuda_engine.launch_count - before == 2, t
+        assert len(calls) - seen == (2 if t == 0 else 0), t
+    torch.cuda.synchronize()
+    assert env._graphs.graphs["step"][1].launches == 2
+    assert calls == [(9, n)] * len(calls)
+
+
+def test_fingertip_wrapper_refuses_bad_inputs(dev):
+    q = torch.zeros((9, 64), device=dev)
+    qd = torch.zeros((9, 64), device=dev)
+    before = cuda_engine.launch_count
+    with pytest.raises(TypeError):
+        cuda_engine.fingertip_state_cuda(q.double(), qd)
+    with pytest.raises(ValueError):
+        cuda_engine.fingertip_state_cuda(q[:8], qd)
+    with pytest.raises(ValueError):
+        cuda_engine.fingertip_state_cuda(q, qd[:, :-1])
+    with pytest.raises(ValueError):
+        cuda_engine.fingertip_state_cuda(torch.zeros((64, 9), device=dev).T, qd)
+    with pytest.raises(ValueError):
+        cuda_engine.fingertip_state_cuda(q, qd.cpu())
+    assert cuda_engine.launch_count == before

@@ -38,7 +38,8 @@ def dev():
 def test_graphed_epoch_on_the_card(dev):
     """Three captured epochs at 256 envs against ``train_iteration`` from the
     same generator state: metrics, learner and carry bitwise equal, and the
-    graphed epochs count their physics kernel launches, 32 each."""
+    graphed epochs count their kernel launches, 64 each (a physics and a
+    fingertip launch per env step)."""
     env = tenv.TrifingerEnv(config={"num_instances": 256, "command_mode": "torque",
                                     "asymmetric_obs": True}, device=dev, verbose=False)
     cfg = tppo.PPOConfig(minibatch_size=256, cv_minibatch_size=256)
@@ -49,7 +50,7 @@ def test_graphed_epoch_on_the_card(dev):
         me = tppo.train_iteration(cfg, env.static, env.params, eager)
         before = cuda_engine.launch_count
         mg = epoch(cfg, env.static, env.params, graphed)
-        assert cuda_engine.launch_count - before == cfg.horizon
+        assert cuda_engine.launch_count - before == 2 * cfg.horizon
         torch.cuda.synchronize()
         for k, v in me.items():
             assert torch.equal(v, mg[k]) if torch.is_tensor(v) else v == mg[k], (e, k)
@@ -66,7 +67,8 @@ def test_env_step_graph_on_the_card(dev):
     """The captured env reset and step against the eager functions from the
     same draws and actions: bitwise equal outputs and state (after the first
     reset too), an obs kept by the caller unchanged by the next step, one
-    kernel launch per call."""
+    physics and one fingertip kernel launch per call, the captured ones
+    counted from the replays."""
     n = 512
     env = tenv.TrifingerEnv(config={"num_instances": n, "command_mode": "torque",
                                     "asymmetric_obs": True}, device=dev, verbose=False)
@@ -91,7 +93,7 @@ def test_env_step_graph_on_the_card(dev):
         if kept is not None:
             assert torch.equal(kept[0], kept[1]), t
         kept = (obs, obs.clone())
-    assert cuda_engine.launch_count - before == 2 * (1 + 5)
+    assert cuda_engine.launch_count - before == 2 * 2 * (1 + 5)
     ours, ref = tenv.env_state_tensors(env.state), tenv.env_state_tensors(state)
     assert all(torch.equal(ours[k], ref[k]) for k in ref)
 
@@ -115,7 +117,7 @@ def test_nccl_rank_graphed_epoch_on_the_card(dev, tmp_path):
     """The one rank of an NCCL group: three captured epochs, its collectives
     in the graphs, against the same rank's eager epochs and against the
     captured epochs without a group, from the same generator state: all
-    bitwise equal; each epoch 32 kernel launches and the eager epoch's
+    bitwise equal; each epoch 64 kernel launches and the eager epoch's
     collectives (one all-reduce per minibatch step, two for the advantages,
     one for the metrics, run after the replays), counted from the replays."""
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
@@ -135,7 +137,7 @@ def test_nccl_rank_graphed_epoch_on_the_card(dev, tmp_path):
             shard.counts.clear()
             before = cuda_engine.launch_count
             mg = epoch(cfg, env.static, env.params, graphed)
-            assert cuda_engine.launch_count - before == cfg.horizon, e
+            assert cuda_engine.launch_count - before == 2 * cfg.horizon, e
             assert dict(shard.counts) == counts == {
                 "all_reduce": epoch.ac_steps + epoch.cv_steps + 3}, (e, counts)
             mp = alone(cfg, env.static, env.params, plain)

@@ -20,6 +20,12 @@ min propagate NaN as torch.maximum / jnp.maximum do, so a state the solve
 blows up goes non-finite in the same fields in both, in float32 and float64,
 and the plain version's fields are held to the JAX reference's.
 
+The same build holds the fingertip kernel's per-env body
+(``leibniz_fingertip_state_host``): in float64 it is held to
+``fingertip_components_v2`` at TIP_TOL on all 39 components, over joint
+states whose tip orientations reach each branch of the Shepperd selection,
+and at q = 0.
+
 The library is built once into build/leibnizgym_tpu_torch/host-<hash>/
 under a file lock, so parallel test workers share one build. It is a test
 tool: the port's CPU path never loads it.
@@ -75,6 +81,8 @@ def _host_library(dtype=torch.float64) -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     lib.leibniz_physics_step_host.argtypes = [ptr] * 5 + [ctypes.c_int,
                                                           ctypes.POINTER(consts)]
+    lib.leibniz_fingertip_state_host.argtypes = [ptr] * 3 + [ctypes.c_int,
+                                                             ctypes.POINTER(consts)]
     assert lib.leibniz_consts_size() == ctypes.sizeof(consts)
     return lib
 
@@ -244,3 +252,73 @@ def test_plain_nan_fields_match_reference():
                                       err_msg=name)
     np.testing.assert_array_equal(~np.isfinite(np.asarray(jwrench)),
                                   ~torch.isfinite(wrench_from_impulses(ref_imp, 0.02)).numpy())
+
+
+# The fingertip kernel and the plain version evaluate the same formulas in
+# the same order; in float64 they differ by rounding alone (g++ may contract
+# or reorder nothing here: no -ffast-math).
+TIP_TOL = 1e-12
+# Shepperd's selection in fingertip_components_v2 (engine_v2._quat_from_m3):
+# 0 where the trace is positive, else 1, 2 or 3 where m00, m11 or m22 is the
+# largest diagonal element
+TIP_CASES = ["trace", "m00", "m11", "m22", "q_zero"]
+
+
+def _tip_branches(q: torch.Tensor) -> torch.Tensor:
+    """(N, 3) the selection each finger's world orientation takes, from the
+    plain version's own matrices."""
+    from leibnizgym_tpu_torch.ops.engine_v2 import _MOUNT_CS
+    from leibnizgym_tpu_torch.ops.soa import m3_mul, m3_rot_x, m3_rot_y
+
+    out = []
+    for f in range(3):
+        c = [torch.cos(q[:, 3 * f + j]) for j in range(3)]
+        s = [torch.sin(q[:, 3 * f + j]) for j in range(3)]
+        r3 = m3_mul(m3_mul(m3_rot_y(c[0], s[0]), m3_rot_x(c[1], s[1])), m3_rot_x(c[2], s[2]))
+        mc, ms = _MOUNT_CS[f]
+        m = m3_mul(((mc, -ms, 0.0), (ms, mc, 0.0), (0.0, 0.0, 1.0)), r3)
+        d0, d1, d2 = m[0][0], m[1][1], m[2][2]
+        out.append(torch.where(d0 + d1 + d2 > 0.0, 0, torch.where(
+            (d0 > d1) & (d0 > d2), 1, torch.where(d1 > d2, 2, 3))))
+    return torch.stack(out, 1)
+
+
+def _tip_inputs(case: str, n: int = 16):
+    """(n, 9) float64 joint positions and velocities: q = 0, or envs drawn
+    over a full turn of every joint of which each has a finger in the
+    case's branch."""
+    rng = np.random.default_rng(51)
+    qd = torch.as_tensor(rng.uniform(-3.0, 3.0, (n, 9)))
+    if case == "q_zero":
+        return torch.zeros((n, 9), dtype=torch.float64), qd
+    pool = torch.as_tensor(rng.uniform(-np.pi, np.pi, (4096, 9)))
+    hit = (_tip_branches(pool) == TIP_CASES.index(case)).any(1)
+    assert int(hit.sum()) >= n, (case, int(hit.sum()))
+    return pool[hit][:n], qd
+
+
+@pytest.mark.parametrize("case", TIP_CASES)
+def test_host_fingertip_matches_plain(host_lib, case):
+    """All 39 components (per finger position, quaternion, linear and
+    angular velocity) of the kernel's per-env body against
+    ``fingertip_components_v2`` in float64."""
+    from leibnizgym_tpu_torch.ops.engine_v2 import fingertip_components_v2
+
+    q, qd = _tip_inputs(case)
+    n = q.shape[0]
+    if case != "q_zero":
+        assert (_tip_branches(q) == TIP_CASES.index(case)).any(1).all()
+    plain = fingertip_components_v2(tuple(q[:, i] for i in range(9)),
+                                    tuple(qd[:, i] for i in range(9)))
+    ref = torch.stack([c for finger in plain for part in finger for c in part])
+    q9, qd9 = q.T.contiguous(), qd.T.contiguous()
+    out = torch.empty((cuda_engine.TIP_ROWS, n), dtype=torch.float64)
+    host_lib.leibniz_fingertip_state_host(
+        q9.data_ptr(), qd9.data_ptr(), out.data_ptr(), n,
+        ctypes.byref(cuda_engine.kernel_consts(SolverConfig(), 0.02, Consts64)))
+    assert ref.shape == out.shape
+    assert float((out - ref).abs().max()) < TIP_TOL
+    # unit quaternions, tips off the origin, velocities not all zero
+    quat = torch.stack([out[13 * f + 3: 13 * f + 7] for f in range(3)])
+    assert float((quat.norm(dim=1) - 1.0).abs().max()) < 1e-12
+    assert float(out[7:13].abs().max()) > 0.1

@@ -7,7 +7,8 @@
   sin/cos differ by an ulp and the contact solve amplifies that, mostly in
   the cube's angular velocity (inverse inertia ~1.8e4); float64 isolates
   the algorithm, which agrees to ~1e-13.
-- ``fingertip_components_v2`` in float32 at 1e-6.
+- ``fingertip_components_v2`` in float32 at 1e-6; on CPU tensors the
+  fingertip dispatch ``fingertip_components_cuda`` is that function.
 The gate sweep is in test_torch_physics_gates.py, the interpret-mode Pallas
 case in test_torch_physics_pallas.py, the kernel source's host build in
 test_torch_kernel_host.py.
@@ -106,6 +107,24 @@ def test_physics_step_cuda_takes_plain_on_cpu():
     p40 = torch.zeros((40, N))
     with pytest.raises(ValueError):
         cuda_engine.step_packed_cuda(s31, p40, torch.zeros(9, N), cfg, 0.02)
+
+
+def test_fingertip_components_cuda_takes_plain_on_cpu():
+    """On CPU tensors the fingertip dispatch runs ``fingertip_components_v2``
+    (bitwise, no launch counted); the kernel entry refuses CPU tensors."""
+    phys = random_physics(N, 7)
+    q, qd = torch.as_tensor(phys["q"]), torch.as_tensor(phys["qd"])
+    before = cuda_engine.launch_count
+    got = cuda_engine.fingertip_components_cuda(q, qd)
+    want = engine_v2.fingertip_components_v2(tuple(q[:, i] for i in range(9)),
+                                             tuple(qd[:, i] for i in range(9)))
+    assert cuda_engine.launch_count == before
+    flat_got = [c for finger in got for part in finger for c in part]
+    flat_want = [c for finger in want for part in finger for c in part]
+    assert len(flat_got) == len(flat_want) == cuda_engine.TIP_ROWS
+    assert all(torch.equal(a, b) for a, b in zip(flat_got, flat_want))
+    with pytest.raises(ValueError):
+        cuda_engine.fingertip_state_cuda(q.T.contiguous(), qd.T.contiguous())
 
 
 def test_fingertip_components_match_reference():

@@ -2,7 +2,7 @@
 spans nest per thread with their parents, epochs and threads in a bounded
 buffer; a 32-env ``Runner.train`` keeps one ``runner.iteration`` per epoch
 with the loop's and the epoch function's spans in order, host-clock phase
-marks and the epoch's replays; ranges open only while a ``torch.profiler``
+marks and the epoch's replays and kernel launches; ranges open only while a ``torch.profiler``
 records, and then sit in its trace where the spans are; a collection of
 generation 2 is a ``host.gc`` span."""
 
@@ -16,6 +16,7 @@ import torch
 from leibnizgym_tpu_torch.config.presets import parse_cli, update_cfg
 from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
 from leibnizgym_tpu_torch.learning.runner import Runner
+from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
@@ -116,6 +117,7 @@ def test_runner_train_keeps_the_loop_and_epoch_spans(tmp_path, graphed):
         assert kids[epoch.id] == inner
         steps = (2 + r._train_iter.ac_steps + r._train_iter.cv_steps) if graphed else 0
         assert epoch.attrs["replays"] == steps
+        assert epoch.attrs["launches"] == 0  # no kernel runs off the card
         m = epoch.marks_ms
         assert m is not None and list(m) == ["start", "rollout", "gae", "update"]
         assert 0 <= m["start"] <= m["rollout"] <= m["gae"] <= m["update"]
@@ -124,6 +126,26 @@ def test_runner_train_keeps_the_loop_and_epoch_spans(tmp_path, graphed):
     names = [s.name for s in w.spans if s.parent == w.call.id]
     assert names.count("runner.readback") == 1  # the drain's, after the loop
     assert names[-1] == "runner.checkpoint"  # "final"
+
+
+def test_epoch_span_counts_the_kernel_launches(tmp_path):
+    """The ``epoch`` span's ``launches`` is the change of
+    ``cuda_engine.launch_count`` over the epoch function: here a stand-in
+    that adds what the graphed D1 epoch's rollout replay adds on the card
+    (32 steps of a physics and a fingertip launch) before the real body."""
+    r = _runner(tmp_path)
+    r.reset()
+    body = r._train_iter
+
+    def launching(*args):
+        cuda_engine.launch_count += 64
+        return body(*args)
+
+    r._train_iter = launching
+    before = trace.records()[-1].id if trace.records() else 0
+    r.train(max_epochs=2)
+    epochs = [s for s in trace.records() if s.id > before and s.name == "epoch"]
+    assert [s.attrs["launches"] for s in epochs] == [64, 64]
 
 
 @pytest.mark.parametrize("profiling", [False, True])
