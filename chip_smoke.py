@@ -192,7 +192,7 @@ try:
     from leibnizgym_tpu_torch.learning.runner import Runner
     from leibnizgym_tpu_torch.models import networks as tnets
     from leibnizgym_tpu_torch import bench
-    from leibnizgym_tpu_torch.ops import cuda_engine
+    from leibnizgym_tpu_torch.ops import capture, cuda_engine
     from leibnizgym_tpu_torch.ops import engine as reference_engine
     from leibnizgym_tpu_torch.ops.engine_v2 import (
         fingertip_components_v2,
@@ -554,7 +554,7 @@ def graph_ms(fn, launches: int) -> float:
     graph (after an eager warm-up), over 5 replays: no host launch cost."""
     fn()
     torch.cuda.synchronize()
-    graph = cuda_engine.CountedGraph()
+    graph = capture.CountedGraph()
     with graph.capture():
         for _ in range(launches):
             fn()

@@ -1379,28 +1379,28 @@ physics_step_kernel(const LgConsts K, const real* __restrict__ state,
 
 static const size_t lg_smem_bytes = (size_t)LG_EPB * LG_ENV_FLOATS * sizeof(real);
 
-// The block's dynamic shared memory is above the 48 KB default: raise the cap.
-static bool lg_smem_set = false;
-static cudaError_t lg_set_smem() {
-  cudaError_t err = cudaFuncSetAttribute(
+// The block's dynamic shared memory is above the 48 KB default: raise the
+// cap, once per device (the attribute is the device context's). The first
+// launch on a device raises it, so it must not fall inside a stream capture.
+static const int lg_max_devices = 64;
+static bool lg_smem_set[lg_max_devices] = {};
+static cudaError_t lg_raise_smem() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < lg_max_devices && lg_smem_set[dev])) return err;
+  err = cudaFuncSetAttribute(
       physics_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lg_smem_bytes);
-  if (err == cudaSuccess) lg_smem_set = true;
+  if (err == cudaSuccess && dev < lg_max_devices) lg_smem_set[dev] = true;
   return err;
 }
-
-// Raises the shared-memory cap now, outside any stream capture: a CUDA graph
-// may then capture the first launch. Returns the CUDA error.
-extern "C" int leibniz_physics_step_prepare() { return (int)lg_set_smem(); }
 
 // Launches on `stream`; allocates nothing. Returns cudaGetLastError().
 extern "C" int leibniz_physics_step(const real* state, const real* params,
                                     const real* tau, real* out, real* wrench, int n,
                                     const LgConsts* consts, void* stream) {
   if (n <= 0) return 0;
-  if (!lg_smem_set) {
-    cudaError_t err = lg_set_smem();
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = lg_raise_smem();
+  if (err != cudaSuccess) return (int)err;
   const int blocks = (n + LG_EPB - 1) / LG_EPB;
   physics_step_kernel<<<blocks, LG_ROLES * LG_EPB, lg_smem_bytes, (cudaStream_t)stream>>>(
       *consts, state, params, tau, out, wrench, n);
@@ -1411,7 +1411,7 @@ extern "C" int leibniz_physics_step(const real* state, const real* params,
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 extern "C" int leibniz_physics_step_occupancy(int* blocks_per_sm, int* smem_bytes) {
   *smem_bytes = (int)lg_smem_bytes;
-  cudaError_t err = lg_set_smem();
+  cudaError_t err = lg_raise_smem();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, physics_step_kernel,
                                                         LG_ROLES * LG_EPB, lg_smem_bytes);

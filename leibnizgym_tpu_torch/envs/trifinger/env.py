@@ -54,6 +54,7 @@ from leibnizgym_tpu_torch.envs.trifinger.rewards import (
 )
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops import engine as reference_engine
+from leibnizgym_tpu_torch.ops.capture import Captured
 from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda, physics_step_plain
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
 from leibnizgym_tpu_torch.parallel.mesh import shard_batch
@@ -1098,10 +1099,12 @@ class TrifingerEnv(EnvBase):
     rank's envs.
 
     On a CUDA device ``reset`` and ``step`` replay captured ``env_reset`` /
-    ``env_step`` graphs (``_EnvGraphs``), the counterpart of the reference's
-    ``jax.jit(env_step)`` / ``jax.jit(env_reset)``; on the CPU they run
-    eagerly. Either way they return tensors of their own, and ``state`` a
-    copy of the env state."""
+    ``env_step`` graphs (``ops/capture.py`` ``Captured``, captured again for
+    new ``params`` or inputs of another layout), the counterpart of the
+    reference's ``jax.jit(env_step)`` / ``jax.jit(env_reset)``; both write
+    the env's one state in place. On the CPU they run eagerly. Either way
+    they return tensors of their own, and ``state`` a copy of the env
+    state."""
 
     def __init__(self, config: Optional[dict] = None, device="cuda:0",
                  verbose: bool = True, visualize: bool = False, dtype=torch.float32,
@@ -1151,7 +1154,11 @@ class TrifingerEnv(EnvBase):
                          device=device, verbose=False, visualize=visualize)
         self.num_instances = self.static.num_envs
         self.verbose = verbose
-        self._graphs = _EnvGraphs(self) if self.device.type == "cuda" else None
+        self._graphs = None
+        if self.device.type == "cuda":
+            self._graphs = {name: Captured(body, self.device, lambda: (self.params,))
+                            for name, body in (("reset", self._reset_body),
+                                               ("step", self._step_body))}
         if verbose:
             print_info(
                 f"TrifingerEnv[torch {self.device}]: N={self.static.num_envs} "
@@ -1166,7 +1173,7 @@ class TrifingerEnv(EnvBase):
         if draws is None:
             draws = self._draw(draw_init_randoms)
         if self._graphs is not None:
-            self._state, (obs,) = self._graphs.reset(tuple(draws))
+            (obs,) = self._graphs["reset"](tuple(draws))
         else:
             self._state, obs = env_reset(self.static, self.params, *draws)
         self._last = (obs, None, None, None, {})
@@ -1184,14 +1191,28 @@ class TrifingerEnv(EnvBase):
         if draws is None:
             draws = self._draw(draw_step_randoms)
         if self._graphs is not None:
-            self._state, (obs, states, reward, dones, info) = self._graphs.step(
-                action, tuple(draws))
+            if self._state is None:
+                raise RuntimeError("step() before reset()")
+            obs, states, reward, dones, info = self._graphs["step"](action, tuple(draws))
         else:
             self._state, obs, states, reward, dones, info = env_step(
                 self.static, self.params, self._state, action, draws
             )
         self._last = (obs, states, reward, dones, info)
         return obs, reward, dones, info
+
+    def _reset_body(self, draws):
+        state, obs = env_reset(self.static, self.params, *draws)
+        if self._state is None:
+            self._state = clone_state(state)
+        else:
+            copy_state_(self._state, state)
+        return (obs,)
+
+    def _step_body(self, action, draws):
+        new_state, *outs = env_step(self.static, self.params, self._state, action, draws)
+        copy_state_(self._state, new_state)
+        return tuple(outs)
 
     @property
     def state(self):
@@ -1210,103 +1231,3 @@ class TrifingerEnv(EnvBase):
 
     def get_state(self):
         return self._last[1]
-
-
-def clone_nested(x):
-    """A copy of nested tuples and dicts of tensors and Nones (the draws'
-    and the step outputs' layouts)."""
-    if isinstance(x, dict):
-        return {k: clone_nested(v) for k, v in x.items()}
-    if isinstance(x, (tuple, list)):
-        return tuple(clone_nested(v) for v in x)
-    return None if x is None else x.clone()
-
-
-def copy_nested_(dst, src) -> None:
-    """Write ``src`` into ``dst``, nested tuples of one layout; raises
-    ValueError on another layout."""
-    if isinstance(dst, (tuple, list)):
-        if not isinstance(src, (tuple, list)) or len(src) != len(dst):
-            raise ValueError("inputs of another layout than the captured ones")
-        for d, v in zip(dst, src):
-            copy_nested_(d, v)
-    elif dst is None:
-        if src is not None:
-            raise ValueError("inputs of another layout than the captured ones")
-    else:
-        dst.copy_(src)
-
-
-def _layout(x):
-    """The shapes, dtypes and Nones of a nested tuple of tensors."""
-    if isinstance(x, (tuple, list)):
-        return tuple(_layout(v) for v in x)
-    return None if x is None else (tuple(x.shape), x.dtype, x.device)
-
-
-class _EnvGraphs:
-    """The captured ``env_reset`` and ``env_step`` of one ``TrifingerEnv`` on
-    the card. Both write the env's one static state in place; the action
-    and the draws are copied into static inputs; the outputs are cloned out
-    of the graphs' buffers.
-
-    The first call of each (and the first after the env's ``params`` object,
-    or the layout of the inputs, changes) runs the function eagerly on a side
-    stream, as the warm-up before capture, and returns that result; it then
-    captures the graph, and later calls replay it. The physics and fingertip
-    kernels' launches inside a replay count in ``cuda_engine.launch_count``."""
-
-    def __init__(self, env: "TrifingerEnv"):
-        self.env = env
-        self.state: Optional[EnvState] = None
-        self.graphs: Dict[str, tuple] = {}  # name -> (key, graph, inputs, outputs)
-
-    def reset(self, draws):
-        def body(draws):
-            state, obs = env_reset(self.env.static, self.env.params, *draws)
-            if self.state is None:
-                self.state = clone_state(state)
-            else:
-                copy_state_(self.state, state)
-            return (obs,)
-
-        outs = self._run("reset", body, (draws,))  # the first call sets self.state
-        return self.state, outs
-
-    def step(self, action, draws):
-        if self.state is None:
-            raise RuntimeError("step() before reset()")
-
-        def body(action, draws):
-            new_state, *outs = env_step(self.env.static, self.env.params, self.state,
-                                        action, draws)
-            copy_state_(self.state, new_state)
-            return tuple(outs)
-
-        outs = self._run("step", body, (action, draws))
-        return self.state, outs
-
-    def _run(self, name: str, body, inputs):
-        key = (self.env.params, _layout(inputs))
-        entry = self.graphs.get(name)
-        if entry is not None and entry[0][0] is key[0] and entry[0][1] == key[1]:
-            _, graph, static_in, static_out = entry
-            copy_nested_(static_in, inputs)
-            graph.replay()
-            return clone_nested(static_out)
-        device = self.env.device
-        with torch.cuda.device(device):
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                outs = body(*inputs)
-            main.wait_stream(side)
-            if self.env.static.engine == "pallas":
-                cuda_engine.prepare(device)
-            static_in = clone_nested(inputs)
-            graph = cuda_engine.CountedGraph()
-            with graph.capture():
-                static_out = body(*static_in)
-        self.graphs[name] = (key, graph, static_in, static_out)
-        return outs

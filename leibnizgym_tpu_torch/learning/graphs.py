@@ -52,19 +52,18 @@ collectives on the host, which a graph cannot hold, so a gloo shard on a
 CUDA device raises here and ``epoch_for`` gives the eager epoch for it,
 saying so. The communicator is made at the learner's first broadcast,
 before any capture. ``DataShard.counts`` is counted in Python, so each
-graph records the collectives it captured (``CountedGraph``) and each
-replay adds them. Every capture runs in ``thread_local`` error mode
-(``CountedGraph``): a process group's watchdog thread queries CUDA events
-while it is open.
+graph records the collectives it captured and each replay adds them; every
+capture runs in ``thread_local`` error mode, since a process group's
+watchdog thread queries CUDA events while it is open (both
+``ops/capture.py`` ``CountedGraph``).
 
 Capture: the first epoch after set-up runs the same bodies eagerly on a side
-stream (the warm-up that PyTorch's CUDA-graph notes ask for, and a real
-epoch: its launches and collectives are counted and its metrics returned),
-then captures the graphs; later epochs replay them. A capture that fails
-raises; nothing falls back to eager. The graphs read the learner's own
-tensors (parameters, Adam moments and counts, ``ts.lr``, the carry) and the
-env params (the success-gated curriculum level, written in place by the
-runner). A checkpoint restore writes into those tensors in place, so the
+stream (``capture.warm_up``; a real epoch: its launches and collectives are
+counted and its metrics returned), then captures the graphs; later epochs
+replay them. A capture that fails raises; nothing falls back to eager. The
+graphs read the learner's own tensors (parameters, Adam moments and
+counts, ``ts.lr``, the carry) and the env params (the success-gated
+curriculum level, written in place by the runner). A checkpoint restore writes into those tensors in place, so the
 graphs stay valid; anything that replaces one of those objects (a new train
 state, fresh optimizers after a restore that does not match, new env
 params) makes the next epoch set up and capture again.
@@ -74,9 +73,9 @@ captured, and everything an epoch returns is computed or copied out of the
 graphs' buffers before the next epoch's rollout replays.
 
 ``GraphedPolicy`` is ``Runner.make_policy``'s policy: one graph of the obs
-clamp, the actor's forward, the noise and the action clamp on a static obs
-buffer, its noise drawn outside into a static buffer (under a shard the
-global block's rows), captured again when the obs layout changes; the
+clamp, the actor's forward, the noise and the action clamp
+(``capture.Captured``), its noise drawn outside (under a shard the global
+block's rows), captured again when the obs or noise layout changes; the
 action is cloned out.
 
 On the CPU nothing is captured: every call runs the bodies, which is how the
@@ -86,7 +85,7 @@ Tracing (``utils/trace.py``): an epoch's spans are ``epoch.setup`` (on a
 new key the buffers, on the card also the warm-up epoch and the capture),
 ``epoch.draws``, ``epoch.launch.rollout`` / ``.gae`` / ``.update`` (each
 phase's replays; off the card its bodies, each run counted in
-``cuda_engine.replay_count`` as the replay it stands for) and
+``capture.replay_count`` as the replay it stands for) and
 ``epoch.metrics``; the device marks go at the epoch's start and after each
 phase, on the epoch's stream (the warm-up's on its side stream), never
 inside a capture.
@@ -98,15 +97,9 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
-from leibnizgym_tpu_torch.envs.trifinger.env import (
-    EnvParams,
-    EnvStatic,
-    clone_nested,
-    copy_nested_,
-    draw_step_randoms,
-)
+from leibnizgym_tpu_torch.envs.trifinger.env import EnvParams, EnvStatic, draw_step_randoms
 from leibnizgym_tpu_torch.learning import ppo
-from leibnizgym_tpu_torch.ops import cuda_engine
+from leibnizgym_tpu_torch.ops import capture
 from leibnizgym_tpu_torch.parallel.mesh import DataShard, shard_batch
 from leibnizgym_tpu_torch.utils import trace
 from leibnizgym_tpu_torch.utils.message import print_info
@@ -141,7 +134,7 @@ class GraphedEpoch:
 
     def __init__(self):
         self._key = None
-        self.graphs: Optional[Dict[str, cuda_engine.CountedGraph]] = None
+        self.graphs: Optional[Dict[str, capture.CountedGraph]] = None
 
     # ----------------------------------------------------------------- set-up
 
@@ -149,7 +142,6 @@ class GraphedEpoch:
                ts: ppo.TrainState) -> None:
         self.cfg, self.static, self.params, self.ts = cfg, static, params, ts
         self.graphs = None
-        self.pool = None
         device = ts.lr.device
         h = cfg.horizon
         self.n_all = ts.shard.n_global if ts.shard is not None else static.num_envs
@@ -202,11 +194,11 @@ class GraphedEpoch:
         steps_draws = [d if d is None else (tuple(d) + (None,) * 6)[:6] for d in steps_draws]
         if self.noise is None:
             self.noise = torch.stack(steps_noise)
-            self.env_draws = [clone_nested(d) for d in steps_draws]
+            self.env_draws = [capture.clone_nested(d) for d in steps_draws]
         else:
             self.noise.copy_(torch.stack(steps_noise))
             for dst, src in zip(self.env_draws, steps_draws):
-                copy_nested_(dst, src)
+                capture.copy_nested_(dst, src)
         ac_idx, cv_idx = ppo.minibatch_indices(cfg, cfg.horizon, n_all, self.asym, perms)
         self.ac_idx.copy_(ac_idx)
         if self.asym:
@@ -273,7 +265,7 @@ class GraphedEpoch:
                     for _ in range(times):
                         self.graphs[name].replay() if replay else body()
                     if not cuda:
-                        cuda_engine.replay_count += times
+                        capture.replay_count += times
                 trace.mark(phase, cuda)
             if on_phase is not None:
                 on_phase(phase)
@@ -286,14 +278,13 @@ class GraphedEpoch:
 
     def _capture_graphs(self) -> None:
         shard = self.ts.shard
-        cuda_engine.prepare(self.ts.lr.device)
-        self.pool = torch.cuda.graph_pool_handle()
+        pool = torch.cuda.graph_pool_handle()
         graphs = {}
         for name, body, times in self._phases():
             if times:
-                graphs[name] = cuda_engine.CountedGraph(
+                graphs[name] = capture.CountedGraph(
                     shard.counts if shard is not None else None)
-                with graphs[name].capture(pool=self.pool):
+                with graphs[name].capture(pool=pool):
                     body()
         self.graphs = graphs
 
@@ -324,14 +315,10 @@ class GraphedEpoch:
         the capture."""
         with trace.span("epoch.draws"):
             self._load_draws(noise, env_draws, perms)
-        main = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
+        with capture.warm_up():
             trace.mark("start", True)
             self._run(on_phase, replay=False)
             metrics = self._metrics()
-        main.wait_stream(side)
         self._capture_graphs()
         return metrics
 
@@ -348,14 +335,14 @@ class GraphedPolicy:
                  deterministic: bool = True, shard: Optional[DataShard] = None):
         self.cfg, self.actor_critic, self.deterministic = cfg, actor_critic, deterministic
         self.shard, self.n_draw = shard, n_draw
-        self.graph = self.key = None
+        self.captured = capture.Captured(self._body, actor_critic.log_std.device)
 
     @torch.no_grad()
-    def _body(self) -> None:
+    def _body(self, obs: torch.Tensor, noise: Optional[torch.Tensor]) -> torch.Tensor:
         cfg = self.cfg
-        mu, log_std, _ = self.actor_critic(torch.clamp(self.obs, -cfg.clip_obs, cfg.clip_obs))
-        action = mu if self.deterministic else mu + torch.exp(log_std) * self.noise
-        self.action = torch.clamp(action, -cfg.clip_actions, cfg.clip_actions)
+        mu, log_std, _ = self.actor_critic(torch.clamp(obs, -cfg.clip_obs, cfg.clip_obs))
+        action = mu if self.deterministic else mu + torch.exp(log_std) * noise
+        return torch.clamp(action, -cfg.clip_actions, cfg.clip_actions)
 
     def __call__(self, obs: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -363,31 +350,4 @@ class GraphedPolicy:
         if not self.deterministic:
             noise = shard_batch(torch.randn((self.n_draw, self.actor_critic.log_std.shape[0]),
                                             generator=generator, device=obs.device), self.shard)
-        if not obs.is_cuda:
-            self.obs, self.noise = obs, noise
-            self._body()
-            return self.action
-        key = (tuple(obs.shape), obs.dtype, obs.device)
-        if self.graph is not None and key == self.key:
-            self.obs.copy_(obs)
-            if noise is not None:
-                self.noise.copy_(noise)
-            self.graph.replay()
-            return self.action.clone()
-        # the warm-up: this call, eagerly, on a side stream; then capture
-        self.obs, self.noise = obs, noise
-        with torch.cuda.device(obs.device):
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                self._body()
-                action = self.action
-            main.wait_stream(side)
-            self.obs = obs.clone()
-            self.noise = noise.clone() if noise is not None else None
-            graph = cuda_engine.CountedGraph()
-            with graph.capture():
-                self._body()
-        self.graph, self.key = graph, key
-        return action
+        return self.captured(obs, noise) if obs.is_cuda else self._body(obs, noise)

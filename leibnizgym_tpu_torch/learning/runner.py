@@ -58,7 +58,7 @@ Tracing (``utils/trace.py``, in memory; ranges in a ``torch.profiler``
 trace while one records): ``train`` is a ``runner.train`` span, each
 host-loop iteration a ``runner.iteration`` (its ``epoch``) holding
 ``epoch`` (the epoch function; ``replays``: its graph replays, from
-``cuda_engine.replay_count``; ``launches``: its hand-written kernels'
+``ops/capture.py`` ``replay_count``; ``launches``: its hand-written kernels'
 launches, from ``cuda_engine.launch_count``, a replay adding those its
 graph captured; as a rank of a process group ``collectives``:
 the change of its ``DataShard.counts`` by kind, which a graph's replays add
@@ -97,7 +97,7 @@ from leibnizgym_tpu_torch.learning.ppo import (
     make_optimizers,
 )
 from leibnizgym_tpu_torch.learning.graphs import GraphedPolicy, epoch_for
-from leibnizgym_tpu_torch.ops import cuda_engine
+from leibnizgym_tpu_torch.ops import capture, cuda_engine
 from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, data_shard
 from leibnizgym_tpu_torch.utils import trace
 
@@ -490,11 +490,11 @@ class Runner:
                     if cfg.nan_telemetry:
                         prev_state = self.nan_dump_payload()
                     with trace.span("epoch") as epoch_span:
-                        replays = cuda_engine.replay_count
+                        replays = capture.replay_count
                         launches = cuda_engine.launch_count
                         issued = collections.Counter(shard.counts) if shard is not None else None
                         metrics = self._train_iter(cfg, self.static, self.env_params, self.ts)
-                        epoch_span.attrs["replays"] = cuda_engine.replay_count - replays
+                        epoch_span.attrs["replays"] = capture.replay_count - replays
                         epoch_span.attrs["launches"] = cuda_engine.launch_count - launches
                         if shard is not None:
                             epoch_span.attrs["collectives"] = dict(shard.counts - issued)

@@ -18,13 +18,11 @@ raise), on CPU tensors they run the plain PyTorch versions
 ``physics_step_plain`` and ``fingertip_components_v2``
 (``ops/engine_v2.py``). ``launch_count`` counts the launches of both
 kernels, those inside CUDA graphs too: a graph captured through
-``CountedGraph`` remembers how many launches it captured, and each replay
-adds that many. ``replay_count`` counts the replays of every
-``CountedGraph`` (``Runner.train``'s ``epoch`` span carries an epoch's
-share of both, ``utils/trace.py``). ``prepare`` builds the kernels and
-raises the physics kernel's shared-memory cap before any capture; the
-constants struct, which a graph keeps by value, is built once per
-``(cfg, dt)``.
+``ops/capture.py``'s ``CountedGraph`` remembers how many launches it
+captured, and each replay adds that many. The physics kernel's first
+launch on a device raises its shared-memory cap there, so it must not fall
+inside a capture (every capture warms up eagerly first); the constants
+struct, which a graph keeps by value, is built once per ``(cfg, dt)``.
 
 The physics kernel's bound is computed here the same way whatever
 implements it: ``step_flops(cfg)`` counts the elementwise operations of one
@@ -38,13 +36,10 @@ kernel is bound by its bytes, ``tip_bytes(n)``.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import dataclasses
 import fcntl
 import functools
-import gc
 import hashlib
 import os
 import re
@@ -70,8 +65,8 @@ from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConf
 
 __all__ = [
     "pack_state", "pack_params", "physics_step_cuda", "physics_step_plain",
-    "step_packed_cuda", "launch_count", "replay_count", "build", "build_info", "kernel_consts",
-    "prepare", "CountedGraph", "occupancy", "step_flops", "step_chain", "step_bytes",
+    "step_packed_cuda", "launch_count", "build", "build_info", "kernel_consts",
+    "occupancy", "step_flops", "step_chain", "step_bytes",
     "bound_ms", "ENVS_PER_BLOCK", "fingertip_state_cuda", "fingertip_components_cuda",
     "TIP_ROWS", "tip_bytes",
 ]
@@ -98,7 +93,6 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 
 launch_count = 0
-replay_count = 0
 
 _lib = None
 build_info: dict = {}
@@ -263,7 +257,6 @@ def build() -> ctypes.CDLL:
     ]
     lib.leibniz_fingertip_state.restype = ctypes.c_int
     lib.leibniz_consts_size.restype = ctypes.c_int
-    lib.leibniz_physics_step_prepare.restype = ctypes.c_int
     if lib.leibniz_consts_size() != ctypes.sizeof(_KernelConsts):
         raise RuntimeError("LgConsts layout differs between physics_step.cu and Python")
     with open(log_path) as f:
@@ -273,68 +266,6 @@ def build() -> ctypes.CDLL:
                       fingertip=_parse_ptxas(log, "fingertip_state_kernel"))
     _lib = lib
     return lib
-
-
-def prepare(device=None) -> None:
-    """Build the kernel and raise its shared-memory cap on ``device`` (the
-    current one by default), outside any stream capture."""
-    lib = build()
-    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
-        rc = lib.leibniz_physics_step_prepare()
-    if rc != 0:
-        raise RuntimeError(f"physics_step shared-memory cap failed: CUDA error {rc}")
-
-
-class CountedGraph:
-    """A ``torch.cuda.CUDAGraph`` whose replays count in ``replay_count``
-    and add the kernel launches it captured to ``launch_count`` and, given
-    ``counts`` (a ``collections.Counter`` counted in Python, such as a
-    ``DataShard``'s collectives), what its capture counted there; capturing
-    launches nothing and counts nothing.
-
-    Every capture runs in ``torch.cuda.graph``'s ``"thread_local"`` error
-    mode: an NCCL process group's watchdog thread queries CUDA events while
-    a capture is open, which the default ``"global"`` mode would turn into
-    an invalidated capture, whether or not the graph holds collectives.
-
-    Python's cyclic garbage collector is off while a capture is open:
-    collecting a dead cycle that holds another CUDA graph (an env and its
-    graphs form one) would destroy that graph inside the capture, which
-    CUDA forbids and which invalidates the capture. ``torch.cuda.graph`` no
-    longer collects before a capture."""
-
-    def __init__(self, counts: collections.Counter | None = None):
-        self.graph = torch.cuda.CUDAGraph()
-        self.launches = 0
-        self.counts = counts
-        self.counted = collections.Counter()
-
-    @contextlib.contextmanager
-    def capture(self, pool=None):
-        global launch_count
-        before = launch_count
-        counts_before = collections.Counter(self.counts)
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-                yield self
-        finally:
-            if collecting:
-                gc.enable()
-            self.launches, launch_count = launch_count - before, before
-            if self.counts is not None:
-                self.counted = self.counts - counts_before
-                self.counts.clear()
-                self.counts.update(counts_before)
-
-    def replay(self) -> None:
-        global launch_count, replay_count
-        self.graph.replay()
-        launch_count += self.launches
-        replay_count += 1
-        if self.counts is not None:
-            self.counts.update(self.counted)
 
 
 def occupancy() -> dict:

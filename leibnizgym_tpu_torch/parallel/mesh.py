@@ -19,7 +19,7 @@ order:
 A ``DataShard`` always issues its collectives, at ``W = 1`` too; the plain
 single-process path passes no shard and issues none. ``DataShard.counts``
 counts the collectives each helper issues; inside a CUDA graph the helper
-counts once at capture, and ``ops/cuda_engine.py``'s ``CountedGraph`` takes
+counts once at capture, and ``ops/capture.py``'s ``CountedGraph`` takes
 that back and adds it at each replay. ``DataShard.seconds`` sums the host
 time inside each collective call: under gloo, which runs its collectives
 on the host, the collective itself with its wait for the peers; under

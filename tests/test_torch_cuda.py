@@ -251,7 +251,7 @@ def test_env_step_launches_one_fingertip_kernel(dev, monkeypatch):
         assert cuda_engine.launch_count - before == 2, t
         assert len(calls) - seen == (2 if t == 0 else 0), t
     torch.cuda.synchronize()
-    assert env._graphs.graphs["step"][1].launches == 2
+    assert env._graphs["step"].graph.launches == 2
     assert calls == [(9, n)] * len(calls)
 
 

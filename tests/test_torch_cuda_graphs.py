@@ -3,7 +3,8 @@ GPU): the captured epoch (``learning/graphs.py``; alone, as the one rank of
 an NCCL group and with ``nan_telemetry``), the captured play policy and env
 step (``envs/trifinger/env.py``; the policy also as the one rank of an
 NCCL group) against the eager functions fed the same draws; the epoch's
-graph replays and device marks (``utils/trace.py``). No JAX here,
+graph replays (``ops/capture.py`` ``replay_count``) and device marks
+(``utils/trace.py``). No JAX here,
 so it runs on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py
@@ -21,7 +22,7 @@ import torch_parallel_workers as workers
 from leibnizgym_tpu_torch.envs.trifinger import env as tenv
 from leibnizgym_tpu_torch.learning import graphs as tgraphs
 from leibnizgym_tpu_torch.learning import ppo as tppo
-from leibnizgym_tpu_torch.ops import cuda_engine
+from leibnizgym_tpu_torch.ops import capture, cuda_engine
 from leibnizgym_tpu_torch.parallel.mesh import all_reduce_mean_, data_shard
 
 pytestmark = pytest.mark.cuda
@@ -173,10 +174,10 @@ def test_graphed_epoch_replays_and_device_marks_on_the_card(dev, monkeypatch):
     trace.sync_clock()
     for e in range(3):
         marks.clear()
-        before = cuda_engine.replay_count
+        before = capture.replay_count
         with trace.span("epoch") as span:
             metrics = epoch(cfg, env.static, env.params, ts)
-        replays = cuda_engine.replay_count - before
+        replays = capture.replay_count - before
         assert replays == (0 if e == 0 else 2 + epoch.ac_steps + epoch.cv_steps), (e, replays)
         assert marks == [(p, False) for p in ("start", "rollout", "gae", "update")], (e, marks)
         fetch_metrics(metrics)
@@ -240,7 +241,7 @@ def test_graphed_policy_on_the_card(dev, group, tmp_path):
                 if kept is not None:
                     assert torch.equal(kept[0], kept[1]), (group, deterministic, t)
                 kept = (got, got.clone())
-            assert policy.graph is not None
+            assert policy.captured.graph is not None
             assert torch.equal(g_eager.get_state(), g_graph.get_state())
     finally:
         if group is not None:

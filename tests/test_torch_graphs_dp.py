@@ -1,7 +1,9 @@
 """The port's compiled paths under a data-parallel shard and for play
 (``learning/graphs.py``: ``GraphedEpoch`` with a ``DataShard`` and with
-``nan_telemetry``, ``GraphedPolicy``; ``ops/cuda_engine.py``'s
-``CountedGraph`` counting the collectives a graph captured).
+``nan_telemetry``, ``GraphedPolicy``; ``ops/capture.py``'s
+``CountedGraph`` counting the collectives a graph captured and its
+``Captured`` cycle of warm-up, capture and replay, with stand-ins for the
+CUDA calls).
 
 On the CPU nothing is captured. Two gloo ranks, spawned by
 ``parallel.launch`` once for the module (``torch_parallel_workers.
@@ -32,7 +34,7 @@ import torch
 import torch_parallel_workers as workers
 from leibnizgym_tpu_torch.learning import ppo as tppo
 from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch, GraphedPolicy, epoch_for
-from leibnizgym_tpu_torch.ops import cuda_engine
+from leibnizgym_tpu_torch.ops import capture, cuda_engine
 from leibnizgym_tpu_torch.parallel.launch import launch
 from test_torch_runner import _real_runner
 
@@ -128,7 +130,7 @@ def test_counted_graph_adds_captured_collectives_on_replay(monkeypatch):
     monkeypatch.setattr(cuda_engine, "launch_count", 7)
     counts = collections.Counter(all_reduce=3, broadcast=1)
     other = collections.Counter(all_reduce=5)
-    graph = cuda_engine.CountedGraph(counts)
+    graph = capture.CountedGraph(counts)
     assert gc.isenabled()
     with graph.capture():
         assert not gc.isenabled()
@@ -144,6 +146,77 @@ def test_counted_graph_adds_captured_collectives_on_replay(monkeypatch):
         assert cuda_engine.launch_count == 7 + 32 * k
         assert counts == collections.Counter(all_reduce=3 + 2 * k, broadcast=1, all_gather=k)
     assert other == collections.Counter(all_reduce=6)
+
+
+class _FakeStream:
+    """Stands in for a ``torch.cuda.Stream`` on the CPU: notes its joins."""
+
+    def __init__(self, name, events):
+        self.name, self.events = name, events
+
+    def wait_stream(self, other):
+        self.events.append(f"{self.name} waits {other.name}")
+
+
+def test_captured_warms_up_captures_and_replays_per_key(monkeypatch):
+    """``capture.Captured``: the first call for a key runs the body on a side
+    stream joined to the current one both ways, returns that result and
+    captures the body on clones of the inputs; a call with the same bound
+    object and input layout copies its inputs in and replays without
+    running the body, counted in ``replay_count``, and returns copies of the
+    captured outputs; a new bound object or another input layout (a shape,
+    a None become a tensor) captures again."""
+    events = []
+
+    @contextlib.contextmanager
+    def phase(name, *args, **kwargs):
+        events.append(name)
+        yield
+        events.append("/" + name)
+
+    main = _FakeStream("main", events)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda *a, **k: phase("capture"))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: phase("device"))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: main)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda: _FakeStream("side", events))
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: phase(stream.name))
+
+    def body(x, extra):
+        events.append("body")
+        return x + 1.0, {"twice": 2.0 * x if extra is None else extra * x}
+
+    bound = [object()]
+    graphed = capture.Captured(body, "cpu", lambda: (bound[0],))
+    cycle = ["device", "side waits main", "side", "body", "/side", "main waits side",
+             "capture", "body", "/capture", "/device"]
+    x0 = torch.arange(4.0)
+    out = graphed(x0, None)
+    assert events == cycle
+    assert torch.equal(out[0], x0 + 1.0) and torch.equal(out[1]["twice"], 2.0 * x0)
+    assert graphed.inputs[0] is not x0 and torch.equal(graphed.inputs[0], x0)
+    captured = graphed.outputs
+    for t in range(1, 4):
+        events.clear()
+        replays = capture.replay_count
+        x = torch.arange(4.0) * (t + 2)
+        out = graphed(x, None)
+        assert events == [] and capture.replay_count == replays + 1, t
+        assert torch.equal(graphed.inputs[0], x) and graphed.inputs[1] is None, t
+        assert graphed.outputs is captured, t
+        for got, kept in ((out[0], captured[0]), (out[1]["twice"], captured[1]["twice"])):
+            assert torch.equal(got, kept) and got.data_ptr() != kept.data_ptr(), t
+    for call in (lambda: graphed(torch.arange(6.0), None),
+                 lambda: graphed(torch.arange(6.0), torch.ones(6)),
+                 lambda: bound.__setitem__(0, object()) or graphed(torch.arange(6.0),
+                                                                  torch.ones(6))):
+        events.clear()
+        replays = capture.replay_count
+        out = call()
+        assert events == cycle and capture.replay_count == replays
+        assert graphed.outputs is not captured
+        captured = graphed.outputs
+    assert torch.equal(out[1]["twice"], torch.arange(6.0))
 
 
 @pytest.mark.parametrize("backend, device, graphed", [

@@ -2,7 +2,8 @@
 spans nest per thread with their parents, epochs and threads in a bounded
 buffer; a 32-env ``Runner.train`` keeps one ``runner.iteration`` per epoch
 with the loop's and the epoch function's spans in order, host-clock phase
-marks and the epoch's replays and kernel launches; ranges open only while a ``torch.profiler``
+marks and the epoch's replays (``ops/capture.py`` ``replay_count``) and
+kernel launches; ranges open only while a ``torch.profiler``
 records, and then sit in its trace where the spans are; a collection of
 generation 2 is a ``host.gc`` span."""
 
@@ -16,7 +17,7 @@ import torch
 from leibnizgym_tpu_torch.config.presets import parse_cli, update_cfg
 from leibnizgym_tpu_torch.learning.graphs import GraphedEpoch
 from leibnizgym_tpu_torch.learning.runner import Runner
-from leibnizgym_tpu_torch.ops import cuda_engine
+from leibnizgym_tpu_torch.ops import capture, cuda_engine
 from leibnizgym_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
@@ -88,6 +89,7 @@ def test_runner_train_keeps_the_loop_and_epoch_spans(tmp_path, graphed):
     if graphed:
         r._train_iter = GraphedEpoch()
     before = trace.records()[-1].id if trace.records() else 0
+    replays = capture.replay_count
     r.train(max_epochs=3)
     w = trace.window([s for s in trace.records() if s.id > before])
     assert w is not None and [it.attrs["epoch"] for it, _ in w.iterations] == [1, 2, 3]
@@ -123,6 +125,7 @@ def test_runner_train_keeps_the_loop_and_epoch_spans(tmp_path, graphed):
         assert 0 <= m["start"] <= m["rollout"] <= m["gae"] <= m["update"]
         assert m["update"] - m["start"] <= epoch.wall_ms  # host-clock readings inside it
     assert epochs[0].marks_ms["update"] <= epochs[1].marks_ms["start"]
+    assert capture.replay_count - replays == sum(e.attrs["replays"] for e in epochs)
     names = [s.name for s in w.spans if s.parent == w.call.id]
     assert names.count("runner.readback") == 1  # the drain's, after the loop
     assert names[-1] == "runner.checkpoint"  # "final"

@@ -47,9 +47,9 @@ class GuardedEpoch(graphs.GraphedEpoch):
 class GuardedPolicy(graphs.GraphedPolicy):
     """The policy's graph body under ``CaptureGuard``."""
 
-    def _body(self):
+    def _body(self, obs, noise):
         with CaptureGuard():
-            super()._body()
+            return super()._body(obs, noise)
 
 
 @torch.no_grad()
