@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero). Every env
-reset and step launches two hand-written kernels, the physics step and the
-fingertip kinematics (``STEP_LAUNCHES``), and the counts below are such
-pairs: "1 + 32 launches" is 2 x 33 counted in ``cuda_engine.launch_count``.
+reset and step launches three hand-written kernels, the physics step, the
+fingertip kinematics and the MDP tail (``STEP_LAUNCHES``), and the counts
+below are such triples: "1 + 32 launches" is 3 x 33 counted in
+``cuda_engine.launch_count``.
  1. device: torch version, card name and power limit, TF32 off, kernel build
     with its registers, spills, shared memory per block and resident blocks
     per SM (every one of 8192 envs resident at once);
@@ -25,6 +26,10 @@ pairs: "1 + 32 launches" is 2 x 33 counted in ``cuda_engine.launch_count``.
     launch geometry (32 envs per block, the one the design allows); the
     fingertip kernel on that state against ``fingertip_components_v2``
     (``TIP_TOL``), its time beside its bound (bytes) and the plain version's;
+    the tail kernel on a step from that state against the env's plain tail
+    (``TAIL_TOL``; the flags and counters exactly), its time alone in a CUDA
+    graph beside its bound (bytes), the card's whole tail (fingertip kernel,
+    tail kernel, info reductions) and the plain tail, each in a graph;
  5. training: the same preset through ``Runner`` + ``Runner.train`` (what
     ``run_training`` and the CLI call; on the card its epoch is the captured
     one of ``learning/graphs.py``, as in phases 6 and 8) for EPOCHS epochs
@@ -33,7 +38,7 @@ pairs: "1 + 32 launches" is 2 x 33 counted in ``cuda_engine.launch_count``.
     Runner's epoch is the graphed one, finite losses, KL and lr,
     lr within [1e-6, 1e-2], the parameters moved, info/frames, the kernel
     launched 1 + 32 * EPOCHS times (the reset, then one launch per env step;
-    the ``epoch`` span's ``launches`` 32 pairs each),
+    the ``epoch`` span's ``launches`` 32 triples each),
     the ``final`` checkpoint restored bit-identically into a fresh Runner,
     ``make_policy`` + ``play`` for a few steps, the kernel against its plain
     version on the trained state; one actor-critic and one central-value step
@@ -44,12 +49,14 @@ pairs: "1 + 32 launches" is 2 x 33 counted in ``cuda_engine.launch_count``.
     randomization, keypoint obs, success-gated curriculum, cone arena) with
     the asymmetric agent config and the preset's agent overrides, 8192 envs,
     full widths (obs 89, states 161), through ``Runner.train`` for a warm-up
-    epoch and 3 timed ones. Checks: 1 + 32 * 4 kernel launches, finite
+    epoch and 3 timed ones. Checks: 1 + 32 * 4 kernel launches (the
+    ``epoch`` span's ``launches`` 32 triples each), finite
     losses, KL and lr in range, the curriculum level in [0, 1] with the
     tolerances on its lerp, DR live (per-env cube mass and size and PD
     scales spread inside their ranges, inertia = mass * size^2), the kernel
     against its plain version on the trained DR state and scenes, with the
-    referees of KERNEL_TOL's note; then its time there and the epoch split;
+    referees of KERNEL_TOL's note; then its time there, the tail kernel on a
+    step from that state as in phase 4, and the epoch split;
  7. replay of the shipped D4 policies (``leibnizgym_tpu_torch/resources/
     policies/*.npz``) through the port's eval, deterministic, level 1.0,
     1024 envs for one 750-step episode, each under the recipe it was trained
@@ -118,8 +125,9 @@ pairs: "1 + 32 launches" is 2 x 33 counted in ``cuda_engine.launch_count``.
     the GIF where matplotlib and Pillow are installed.
 12. the engines: (a) the env's ``engine`` key on the card: None resolves to
     ``pallas`` and launches the kernel (reset and one step, 2 launches);
-    ``soa`` and ``reference`` step a 64-env env with the fingertip kernel's
-    launches alone (it runs on CUDA tensors whatever the engine); an unknown
+    ``soa`` and ``reference`` step a 64-env env with the fingertip and tail
+    kernels' launches alone (they run on CUDA tensors whatever the engine);
+    an unknown
     name raises. (b) the kernel against the reference engine
     (``ops/engine.py``) on phase 2's CASES at N = 1024, one step each, at
     REF_TOL with its referees; then the kernel, its plain version and the
@@ -128,7 +136,7 @@ pairs: "1 + 32 launches" is 2 x 33 counted in ``cuda_engine.launch_count``.
     line with the reference's keys (``bench.KEYS``), finite, rates > 0, and
     3 x (1 + 12 x 100) + 1 + 12 x 32 kernel launches. (d)
     ``decompose_bench.py --what physics_pallas`` and ``--what env`` at 8192
-    envs (1,100 physics launches; 2 x 1,101 pairs, the captured env step
+    envs (1,100 physics launches; 2 x 1,101 triples, the captured env step
     then the eager one) and the MDP layer's ms between them.
 13. the compiled paths (``learning/graphs.py``, the captured env step): an
     eager and a graphed ``Runner`` from the same seed trained one epoch at
@@ -158,10 +166,11 @@ pairs: "1 + 32 launches" is 2 x 33 counted in ``cuda_engine.launch_count``.
     from the same seed over 2 epochs (the warm-up and the first replay),
     bitwise equal after each (``graph_pair``, as phase 13).
 The last two lines are the kernels' JSON record (the physics kernel's
-times, flops, bound and plain version's time from phase 6, launches of both
-kernels summed over the counted paths of phases 4-14, graph replays counted
-by the launches they captured; the fingertip kernel's times, bound and
-error from phase 4) and the device JSON line.
+times, flops, bound and plain version's time from phase 6, launches of the
+three kernels summed over the counted paths of phases 4-14, graph replays
+counted by the launches they captured; the fingertip kernel's times, bound
+and error from phase 4; the tail kernel's from phase 6, D1's from phase 4
+beside them) and the device JSON line.
 Needs a CUDA device and the repository around it; imports no JAX.
 """
 
@@ -198,6 +207,7 @@ try:
         fingertip_components_v2,
         pack_params,
         pack_state,
+        packed_view,
         step_packed,
     )
     from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
@@ -258,9 +268,10 @@ KERNEL_TOL = {
     "cube_angvel": (5e-3, 5e-3), "wrench": (1e-4, 1e-4),
 }
 PERTURB, PERTURB_REL, MAX_SPLIT = 256, 3e-7, 4
-# hand-written kernel launches per env reset or step: the physics kernel's
-# and the fingertip kernel's (csrc/physics_step.cu), counted alike
-STEP_LAUNCHES = 2
+# hand-written kernel launches per env reset or step: the physics kernel's,
+# the fingertip kernel's and the tail kernel's (csrc/physics_step.cu),
+# counted alike
+STEP_LAUNCHES = 3
 # Golden replay: the goldens' own bound (tests/test_golden_trajectory.py)
 # on q, cube_pos and cube_quat; qd, which the goldens do not bound, gets the
 # velocity bound above.
@@ -530,6 +541,7 @@ def phase_slice(dev, num_envs: int = 8192):
     timing = time_kernel("d1", (s31, p40, t9), st.solver, st.dt)
     kernel_split((s31, p40, t9), st.solver, st.dt)
     tip = fingertip_vs_plain("d1", es.physics)
+    tail = tail_vs_plain("d1", st, env.params, es, dev)
     # the launch geometry the design allows (see the kernel's source note):
     # 32 envs and 4 warps per block, every env resident at once
     occ = cuda_engine.occupancy()
@@ -539,7 +551,8 @@ def phase_slice(dev, num_envs: int = 8192):
           f"resident_blocks_per_sm={occ['blocks_per_sm']} "
           f"dynamic_smem_bytes_per_block={occ['dynamic_smem_bytes']} "
           f"kernel_ms={timing['ms']:.4f}", flush=True)
-    return {"launches": launches, "max_abs_err": max(diffs.values()), **timing, "tip": tip}
+    return {"launches": launches, "max_abs_err": max(diffs.values()), **timing, "tip": tip,
+            "tail": tail}
 
 
 # The fingertip kernel against fingertip_components_v2, both float32 on the
@@ -591,6 +604,67 @@ def fingertip_vs_plain(tag: str, physics) -> dict:
     check(within, f"fingertip {tag}: kernel vs plain {float(err.max()):.3e} beyond {TIP_TOL}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
             "bytes": nbytes, "max_abs_err": float(err.max()), "library_ms": None}
+
+
+# The tail kernel against the env's plain tail, both float32 on the card:
+# |kernel - plain| <= atol + rtol * max |plain| of the quantity, the flags
+# and counters exactly (tests/test_torch_cuda.py's TAIL_CARD_TOL and its
+# reason).
+TAIL_TOL = (1e-5, 1e-5)
+TAIL_GRAPH_LAUNCHES = 100
+
+
+def tail_vs_plain(tag: str, st, params, es, dev) -> dict:
+    """One env step from ``es`` (seeded random actions and draws): the
+    tail kernel (``env._step_tail_cuda``) against the plain tail within
+    TAIL_TOL; then the tail kernel alone, the card's whole tail and the
+    plain tail timed inside CUDA graphs (what the captured env step pays)
+    beside the kernel's bound, its bytes over the memory rate. Returns the
+    kernels' JSON record of it."""
+    n = st.num_envs
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    action = torch.rand((n, st.action_dim), generator=gen, device=dev) * 2.0 - 1.0
+    head = tenv._step_head(st, params, es, action, tenv.draw_step_randoms(st, gen, n, dev))
+    got = tenv._step_tail_cuda(st, params, *head)
+    ref = tenv._step_tail_plain(st, params, *head)
+    atol, rtol = TAIL_TOL
+    errs, within = {}, True
+    for i, name in ((1, "obs"), (2, "states"), (3, "reward")):
+        a, b = got[i], ref[i]
+        errs[name] = float((a - b).abs().max()) if b.numel() else 0.0
+        within &= errs[name] <= atol + rtol * (float(b.abs().max()) if b.numel() else 0.0)
+    flags = (torch.equal(got[4], ref[4])
+             and all(torch.equal(getattr(got[0], k), getattr(ref[0], k))
+                     for k in ("reset_buf", "goal_reset_buf", "steps_count", "successes",
+                               "frames")))
+    keys = list(got[5]) == list(ref[5]) and all(
+        got[5][k].dtype == ref[5][k].dtype for k in ref[5])
+    state, physics, tau, wrench, action_buf, noise = head
+    s31 = packed_view(physics)
+    inputs = tenv._tail_inputs(params, state, s31,
+                               cuda_engine.fingertip_state_cuda(s31[0:9], s31[9:18]),
+                               action_buf, noise)
+    inputs.update(torque=tau, wrench=wrench)
+    consts = tenv.tail_consts(st)
+    kernel_ms = graph_ms(lambda: cuda_engine.mdp_tail_cuda(consts, inputs), TAIL_GRAPH_LAUNCHES)
+    tail_ms = graph_ms(lambda: tenv._step_tail_cuda(st, params, *head), 10)
+    plain_ms = graph_ms(lambda: tenv._step_tail_plain(st, params, *head), 1)
+    nbytes = cuda_engine.tail_bytes(n, consts)
+    bound = nbytes / cuda_engine.PEAK_BYTES_PER_S * 1e3
+    print(f"{smi()} mdp_tail {tag} n={n} max_abs_err obs={errs['obs']:.3e} "
+          f"states={errs['states']:.3e} reward={errs['reward']:.3e} within_tol={within} "
+          f"flags_equal={flags} info_keys_dtypes_equal={keys} kernel_ms={kernel_ms:.5f} "
+          f"card_tail_graphed_ms={tail_ms:.5f} plain_tail_graphed_ms={plain_ms:.4f} "
+          f"bound_ms={bound:.6f} bound_by=bytes bound_share={bound / kernel_ms:.4f} "
+          f"bytes={nbytes} registers={cuda_engine.build_info.get('tail', {}).get('registers')} "
+          f"spill_store_bytes={cuda_engine.build_info.get('tail', {}).get('spill_store_bytes')}",
+          flush=True)
+    check(within, f"mdp_tail {tag}: kernel vs plain {errs} beyond {TAIL_TOL}")
+    check(flags and keys, f"mdp_tail {tag}: flags, counters or info keys differ")
+    check(kernel_ms <= 0.025, f"mdp_tail {tag}: {kernel_ms:.5f} ms a launch, over 0.025")
+    return {"ms": kernel_ms, "card_tail_ms": tail_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "bytes": nbytes, "max_abs_err": max(errs.values()),
+            "library_ms": None}
 
 
 def time_kernel(tag: str, packed, cfg, dt):
@@ -737,7 +811,7 @@ def phase_training(dev, num_envs: int = 8192, epochs: int = EPOCHS):
         h, n = pcfg.horizon, st.num_envs
         want = STEP_LAUNCHES * (1 + h * epochs)
         check(launches == want, f"training launch_count {launches} != {want}")
-        # each epoch span's launches (utils/trace.py): its rollout's pairs
+        # each epoch span's launches (utils/trace.py): its rollout's triples
         spans = [s.attrs.get("launches") for s in trace.records() if s.name == "epoch"]
         print(f"train epoch_span_launches={spans[-epochs:]}", flush=True)
         check(spans[-epochs:] == [STEP_LAUNCHES * h] * epochs,
@@ -900,6 +974,10 @@ def phase_d4(dev, num_envs: int = 8192, epochs: int = D4_EPOCHS):
         h, n = pcfg.horizon, st.num_envs
         want = STEP_LAUNCHES * (1 + h * epochs)
         check(launches == want, f"d4 launch_count {launches} != {want}")
+        spans = [s.attrs.get("launches") for s in trace.records() if s.name == "epoch"]
+        print(f"d4 epoch_span_launches={spans[-epochs:]}", flush=True)
+        check(spans[-epochs:] == [STEP_LAUNCHES * h] * epochs,
+              f"d4 epoch span launches {spans[-epochs:]} != {STEP_LAUNCHES * h} each")
         rows = check_epoch_metrics("d4", history, epochs, h, n)
 
         # the curriculum level and the tolerances at that level
@@ -941,10 +1019,11 @@ def phase_d4(dev, num_envs: int = 8192, epochs: int = D4_EPOCHS):
         # the kernel against its plain version on the trained DR state and scenes
         diffs, (s31, p40, t9) = kernel_vs_plain_on("d4", es, st, referee=True)
         timing = time_kernel("d4_dr", (s31, p40, t9), st.solver, st.dt)
+        tail = tail_vs_plain("d4_dr", st, runner.env_params, es, dev)
         if runner.writer is not None:
             runner.writer.close()
     print_epoch_split("d4", marks, epochs, h, n)
-    return {"launches": launches, "max_abs_err": max(diffs.values()), **timing}
+    return {"launches": launches, "max_abs_err": max(diffs.values()), **timing, "tail": tail}
 
 
 # ---------------------------------------------------------------------------
@@ -2251,8 +2330,8 @@ def engine_key(dev) -> int:
         obs = env.step(torch.rand((ENGINE_KEY_ENVS, 9), device=dev) * 2 - 1)[0]
         torch.cuda.synchronize()
         n = cuda_engine.launch_count - before
-        # the fingertip kernel runs on CUDA tensors whatever the engine
-        expected = 2 * (STEP_LAUNCHES if engine is None else 1)
+        # the fingertip and tail kernels run on CUDA tensors whatever the engine
+        expected = 2 * (STEP_LAUNCHES if engine is None else STEP_LAUNCHES - 1)
         resolved = env.static.engine
         print(f"engine_key {engine!r} resolved={resolved} launches={n} "
               f"obs_finite={bool(torch.isfinite(obs).all())}", flush=True)
@@ -2735,6 +2814,7 @@ def main() -> int:
     print("launches " + " ".join(f"{k.replace(' ', '_')}={v}" for k, v in paths.items()),
           flush=True)
     tip = records["slice"].pop("tip")
+    tail = {"d1": records["slice"].pop("tail"), "d4_dr": records["d4"].pop("tail")}
     record = dict(records["d4"], launches=sum(paths.values()),
                   max_abs_err=max(r["max_abs_err"] for r in records.values()))
     print(json.dumps({"kernels": [{
@@ -2746,6 +2826,10 @@ def main() -> int:
         "name": "fingertip_state", "route": "cuda",
         "source": "leibnizgym_tpu_torch/csrc/physics_step.cu",
         "replaces": None, **tip,
+    }, {
+        "name": "mdp_tail", "route": "cuda",
+        "source": "leibnizgym_tpu_torch/csrc/physics_step.cu",
+        "replaces": None, **tail["d4_dr"], "d1": tail["d1"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,9 @@
 // TriFinger physics control step on an H100: solver rows built once per
 // substep by a team of warps, kept in shared memory, swept by one lane per env.
 // Beside it, fingertip_state_kernel computes the env's fingertip kinematics
-// from the stepped joints (see its own note, near the end of this file).
+// from the stepped joints, and mdp_tail_kernel the rest of the env step
+// after them: rewards, termination, observation and states (see their own
+// notes, near the end of this file). One nvcc build holds all three.
 //
 // Replaces the TPU kernel leibnizgym_tpu/ops/pallas_engine.py::_kernel
 // (launched by physics_step_pallas), whose body is
@@ -86,6 +88,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 #ifdef __CUDACC__
@@ -139,6 +142,21 @@ LG_HD float lg_sin(float x) { return sinf(x); }
 LG_HD double lg_sin(double x) { return sin(x); }
 LG_HD float lg_cos(float x) { return cosf(x); }
 LG_HD double lg_cos(double x) { return cos(x); }
+LG_HD float lg_exp(float x) { return expf(x); }
+LG_HD double lg_exp(double x) { return exp(x); }
+LG_HD float lg_asin(float x) { return asinf(x); }
+LG_HD double lg_asin(double x) { return asin(x); }
+LG_HD float lg_pow(float x, float y) { return powf(x, y); }
+LG_HD double lg_pow(double x, double y) { return pow(x, y); }
+// torch.rsqrt: the device's rsqrtf on the card, 1 / sqrt on the host
+LG_HD float lg_rsqrt(float x) {
+#ifdef __CUDA_ARCH__
+  return rsqrtf(x);
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+LG_HD double lg_rsqrt(double x) { return 1.0 / sqrt(x); }
 
 #define LG_STATE_ROWS 31
 #define LG_PARAM_ROWS 40
@@ -1334,6 +1352,506 @@ LG_HD void fingertip_env(const LgConsts& K, const real* __restrict__ q,
   for (int i = 0; i < 3 * LG_TIP_ROWS; ++i) out[i * n + env] = o[i];
 }
 
+// ---------------------------------------------------------------------------
+// the MDP tail: what the env step computes after the physics
+// ---------------------------------------------------------------------------
+//
+// The third kernel of this file, mdp_tail_kernel, replaces no TPU kernel
+// either: the JAX package leaves the env step's post-physics part to XLA,
+// which fuses it. It is envs/trifinger/env.py's tail after the fingertip
+// kinematics: the goal's rotation, the seven reward terms
+// (rewards.compute_rewards_c), the success termination and its tolerance
+// curriculum (_check_termination), the step and reset counters, the
+// observation (_assemble_obs_raw, _observe) and the asymmetric states
+// (_fill_states), the history slots, and each env's column of every info
+// mean and count. In plain PyTorch that is one launch per operation on (N,)
+// columns, ~1,600 a step with keypoints (~360 without), so the env step was
+// bound by launches, not by its arithmetic. One thread per env computes it
+// all in registers (~1,500 elementwise operations at D4, ~300 at D1, and
+// their exp, asin and square roots), reading the physics state,
+// the fingertip kernel's (39, n) rows and the env state in the layouts the
+// env keeps them in. What bounds it is bytes (~560 B in and ~1,160 B out an
+// env at D4: 14 MB at 8192 envs, 4.2 us at 3.35 TB/s). A first version,
+// one warp a block finishing and storing its envs' rows itself, took
+// 32.5 / 43.1 us (D1 / D4 + DR) on the H100: one warp per block leaves ~2
+// warps an SM, and each env's 250 normalizing divisions ran on its lane
+// alone. So warp 0 computes each env's raw values into shared memory while
+// warps 1-3 gather the states' other columns, and then all four warps
+// normalize and store the block's rows column by column: the (n, obs) and
+// (n, states) stores and the noise loads coalesce, as the component-major
+// rows do as they are.
+//
+// One path serves every configuration: what differs between presets lives
+// in LgTailConsts, built once from the env's EnvStatic (env.py
+// _tail_consts), and the kernel branches on its fields alone. The same
+// formulas in the same order as the plain version, no fast math, no
+// atomics. The plain version counts env steps in float32 whatever the env's
+// type, so the schedules, the frame-ramped tolerances and each weight that
+// meets a schedule are float here in every build; the rest is real.
+
+#define LG_NUM_TERMS 7
+// envs per block, one a lane of warp 0, and the block's threads: 8192 envs
+// are 256 blocks of four warps
+#define LG_TAIL_EPB 32
+#define LG_TAIL_THREADS 128
+
+// One reward term (rewards.RewardTermSpec), filled by env.py _tail_consts
+// through the ctypes mirror in ops/cuda_engine.py; field order and types
+// must match it (LG_TERM_FIELDS lists them for the check).
+struct LgTerm {
+  real weight, epsilon, scale, sched_start, sched_end;
+  // Python-double expressions of the plain version, rounded once to real:
+  // weight * dt, sched_end - sched_start, 1 / norm_p, the keypoint kernel's
+  // sharpness (scale, 30 where the spec leaves it at 1)
+  real weight_dt, sched_span, inv_p, kernel_scale;
+  int32_t activate, norm_p, sched_enabled;
+};
+#define LG_TERM_FIELDS(X)                                                        \
+  X(weight) X(epsilon) X(scale) X(sched_start) X(sched_end) X(weight_dt)          \
+  X(sched_span) X(inv_p) X(kernel_scale) X(activate) X(norm_p) X(sched_enabled)
+
+// The env's constants (env.EnvStatic), terms in REWARD_TERM_NAMES order.
+struct LgTailConsts {
+  LgTerm terms[LG_NUM_TERMS];
+  real dt, goal_half_h, obs_noise_std, termination_bonus;
+  real position_tolerance, orientation_tolerance;
+  real position_tolerance_init, orientation_tolerance_init;
+  // final - init, in Python doubles
+  real position_tolerance_span, orientation_tolerance_span;
+  real tolerance_anneal_frames;
+  int32_t envs_counted, control_decimation, episode_length, task_difficulty;
+  int32_t termination_activate, curriculum_success_gated, dones_and, normalize_obs;
+  int32_t asymmetric_obs, use_keypoint_obs, goal_rotation_active;
+  int32_t action_dim, obs_dim, state_dim;
+};
+#define LG_TAIL_CONSTS_FIELDS(X)                                                     \
+  X(terms) X(dt) X(goal_half_h) X(obs_noise_std) X(termination_bonus)                \
+  X(position_tolerance) X(orientation_tolerance) X(position_tolerance_init)          \
+  X(orientation_tolerance_init) X(position_tolerance_span)                           \
+  X(orientation_tolerance_span) X(tolerance_anneal_frames) X(envs_counted)           \
+  X(control_decimation) X(episode_length) X(task_difficulty) X(termination_activate) \
+  X(curriculum_success_gated) X(dones_and) X(normalize_obs) X(asymmetric_obs)        \
+  X(use_keypoint_obs) X(goal_rotation_active) X(action_dim) X(obs_dim) X(state_dim)
+
+// The rows of the info block, each env's column of every info mean and
+// count (ops/cuda_engine.py TAIL_INFO_NAMES): the seven reward terms in
+// REWARD_TERM_NAMES order, then the position and orientation distances,
+// strict success, successes and the two goal flags, which stay last.
+enum {
+  LG_INFO_POS_DIST = LG_NUM_TERMS, LG_INFO_ORI_DIST, LG_INFO_STRICT, LG_INFO_SUCCESSES,
+  LG_INFO_POS_COUNT, LG_INFO_ORI_COUNT, LG_INFO_ROWS
+};
+
+// The tensors of one launch (ops/cuda_engine.py TAIL_INPUTS, TAIL_OUTPUTS):
+// (k, n) rows are component-major, (n, k) rows env-major; booleans are
+// torch.bool bytes. A reset reads and writes the fields its note marks
+// "reset" and leaves the rest null.
+struct LgTailIO {
+  const real* state;        // (31, n) the stepped physics state; reset
+  const real* tips;         // (39, n) fingertip_state_kernel's rows; reset
+  const real* goal_pose;    // (7, n) before this step's rotation; reset
+  const real* goal_angvel;  // (3, n)
+  const real* tip_prev;     // (9, n) history slots
+  const real* obj_prev;     // (7, n)
+  const real* half_extents;  // (n, 3) per-env cube half extents; reset
+  const real* action;       // (n, action_dim) the step's action buffer; reset
+  const real* torque;       // (n, 9) the applied torque
+  const real* wrench;       // (n, 18) the tip wrench
+  const real* noise;        // (n, obs_dim) observation-noise draws or null; reset
+  const real* obs_low;      // (obs_dim,) observation scale; reset
+  const real* obs_high;
+  const real* state_low;    // (state_dim,)
+  const real* state_high;
+  const real* level;        // () the success-gated curriculum level
+  const int32_t* frames;    // () the simulator frames before the step; reset
+  const uint8_t* reset_buf;  // (n,)
+  const uint8_t* goal_reset_buf;
+  const int32_t* steps_count;
+  const int32_t* successes;
+  real* out_obs;            // (n, obs_dim); reset
+  real* out_states;         // (n, state_dim)
+  real* out_reward;         // (n,)
+  uint8_t* out_dones;
+  uint8_t* out_reset_buf;
+  uint8_t* out_goal_reset_buf;
+  int32_t* out_steps_count;
+  int32_t* out_successes;
+  real* out_tip_prev;       // (9, n); reset
+  real* out_obj_prev;       // (7, n); reset
+  real* out_goal_pose;      // (7, n)
+  int32_t* out_frames;      // (); reset
+  real* out_info;           // (LG_INFO_ROWS, n)
+  real* out_scalars;        // (3,) position and orientation tolerance, curriculum fraction
+};
+#define LG_TAIL_IO_FIELDS(X)                                                           \
+  X(state) X(tips) X(goal_pose) X(goal_angvel) X(tip_prev) X(obj_prev) X(half_extents) \
+  X(action) X(torque) X(wrench) X(noise) X(obs_low) X(obs_high) X(state_low)           \
+  X(state_high) X(level) X(frames) X(reset_buf) X(goal_reset_buf) X(steps_count)       \
+  X(successes) X(out_obs) X(out_states) X(out_reward) X(out_dones) X(out_reset_buf)    \
+  X(out_goal_reset_buf) X(out_steps_count) X(out_successes) X(out_tip_prev)            \
+  X(out_obj_prev) X(out_goal_pose) X(out_frames) X(out_info) X(out_scalars)
+
+// a * b, a + b and a - b, each rounded on its own as PyTorch's separate
+// kernels round them (nvcc would contract a * b + c into one FMA). Every
+// product that meets a sum in the tail goes through them, so the kernel
+// rounds as the plain version does: the orientation distance feeds asin,
+// whose slope near 1 turns an ulp of its argument into ~1e-4 rad, and the
+// distances and tolerances meet in comparisons whose flags must agree.
+LG_HD float lg_mul(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+LG_HD float lg_add(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fadd_rn(a, b);
+#else
+  return a + b;
+#endif
+}
+LG_HD float lg_sub(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fsub_rn(a, b);
+#else
+  return a - b;
+#endif
+}
+LG_HD double lg_mul(double a, double b) { return a * b; }
+LG_HD double lg_add(double a, double b) { return a + b; }
+LG_HD double lg_sub(double a, double b) { return a - b; }
+
+// a / b for b a Python number, as PyTorch divides a tensor by one: on the
+// card it multiplies by the rounded reciprocal of b, on the CPU it divides
+LG_HD float lg_div_scalar(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, __frcp_rn(b));
+#else
+  return a / b;
+#endif
+}
+LG_HD double lg_div_scalar(double a, double b) { return a / b; }
+
+// rewards._qmul_c: Hamilton product of (x, y, z, w) quaternions
+LG_HD void lg_qmul(const real a[4], const real b[4], real o[4]) {
+  o[0] = lg_sub(lg_add(lg_add(lg_mul(a[3], b[0]), lg_mul(a[0], b[3])), lg_mul(a[1], b[2])),
+                lg_mul(a[2], b[1]));
+  o[1] = lg_add(lg_add(lg_sub(lg_mul(a[3], b[1]), lg_mul(a[0], b[2])), lg_mul(a[1], b[3])),
+                lg_mul(a[2], b[0]));
+  o[2] = lg_add(lg_sub(lg_add(lg_mul(a[3], b[2]), lg_mul(a[0], b[1])), lg_mul(a[1], b[0])),
+                lg_mul(a[2], b[3]));
+  o[3] = lg_sub(lg_sub(lg_sub(lg_mul(a[3], b[3]), lg_mul(a[0], b[0])), lg_mul(a[1], b[1])),
+                lg_mul(a[2], b[2]));
+}
+
+// x0^2 + x1^2 + x2^2, rounded as the plain version rounds it
+LG_HD real lg_sq3(real x0, real x1, real x2) {
+  return lg_add(lg_add(lg_mul(x0, x0), lg_mul(x1, x1)), lg_mul(x2, x2));
+}
+
+// rewards.quat_diff_rad_c: 2 asin(min(|vec(a conj(b))|, 1))
+LG_HD real lg_quat_diff_rad(const real a[4], const real b[4]) {
+  const real cb[4] = {-b[0], -b[1], -b[2], b[3]};
+  real m[4];
+  lg_qmul(a, cb, m);
+  return R(2.) * lg_asin(lg_fmin(lg_sqrt(lg_sq3(m[0], m[1], m[2])), R(1.)));
+}
+
+// x0 y0 - x1 y1, each product rounded
+LG_HD real lg_mul_sub(real x0, real y0, real x1, real y1) {
+  return lg_sub(lg_mul(x0, y0), lg_mul(x1, y1));
+}
+
+// rewards.quat_rotate_c
+LG_HD void lg_quat_rotate(const real q[4], const real v[3], real o[3]) {
+  const real tx = R(2.) * lg_mul_sub(q[1], v[2], q[2], v[1]);
+  const real ty = R(2.) * lg_mul_sub(q[2], v[0], q[0], v[2]);
+  const real tz = R(2.) * lg_mul_sub(q[0], v[1], q[1], v[0]);
+  o[0] = lg_add(lg_add(v[0], lg_mul(q[3], tx)), lg_mul_sub(q[1], tz, q[2], ty));
+  o[1] = lg_add(lg_add(v[1], lg_mul(q[3], ty)), lg_mul_sub(q[2], tx, q[0], tz));
+  o[2] = lg_add(lg_add(v[2], lg_mul(q[3], tz)), lg_mul_sub(q[0], ty, q[1], tx));
+}
+
+// rewards._dist3_c
+LG_HD real lg_dist3(const real a[3], const real b[3]) {
+  return lg_sqrt(lg_sq3(a[0] - b[0], a[1] - b[1], a[2] - b[2]));
+}
+
+// rewards.lgsk_kernel: 1 / (e^(x s) + 2 + e^(-x s)), 0 where e^(x s) overflows
+LG_HD real lg_lgsk(real x, real scale) {
+  const real s = x * scale;
+  return R(1.) / (lg_exp(s) + R(2.) + lg_exp(-s));
+}
+
+// rewards._window_sched / _linear_sched, on the float32 env-step count
+LG_HD float lg_window_sched(const LgTerm& t, float step) {
+  if (!t.sched_enabled) return 1.0f;
+  return (step >= (float)t.sched_start && step <= (float)t.sched_end) ? 1.0f : 0.0f;
+}
+LG_HD float lg_linear_sched(const LgTerm& t, float step) {
+  if (!t.sched_enabled) return 1.0f;
+  const float v = lg_div_scalar(step - (float)t.sched_start, (float)t.sched_span);
+  return lg_fmin(lg_fmax(v, 0.0f), 1.0f);
+}
+
+// rewards._norm_p_c; x ** 3 is x * x * x, as torch.pow computes it
+LG_HD real lg_powi(real x, int p) {
+  return p == 3 ? lg_mul(lg_mul(x, x), x) : lg_pow(x, (real)p);
+}
+LG_HD real lg_norm_p(real dx, real dy, real dz, const LgTerm& t) {
+  if (t.norm_p == 2) return lg_sqrt(lg_sq3(dx, dy, dz));
+  const real ax = lg_fabs(dx), ay = lg_fabs(dy), az = lg_fabs(dz);
+  if (t.norm_p == 1) return ax + ay + az;
+  return lg_pow(lg_add(lg_add(lg_powi(ax, t.norm_p), lg_powi(ay, t.norm_p)),
+                       lg_powi(az, t.norm_p)),
+                t.inv_p);
+}
+
+// The states' columns past the observation: the object's linear and
+// angular velocity 6, the fingertips 39, the applied torque 9, the tip
+// wrench 18 (_fill_states' order)
+#define LG_STATE_EXTRA 72
+// the widest observation: 9 + 9 + 7 + 7 + 18 actions + 48 keypoints
+#define LG_TAIL_MAX_OBS 98
+
+// column obs_dim + k of env e's raw states
+LG_HD real lg_state_extra(const LgTailIO& io, size_t ns, size_t e, int k) {
+  if (k < 6) return io.state[(25 + k) * ns + e];
+  if (k < 6 + 3 * LG_TIP_ROWS) return io.tips[(k - 6) * ns + e];
+  if (k < 54) return io.torque[e * 9 + (k - 45)];
+  return io.wrench[e * 18 + (k - 54)];
+}
+
+// _observe: raw observation value v of a column with scale bounds lo, hi,
+// normalized where configured, plus its noise draw z (null: no noise)
+LG_HD real lg_obs_value(const LgTailConsts& K, real v, real lo, real hi, const real* z) {
+  real o = K.normalize_obs ? R(2.) * (v - (lo + hi) * R(0.5)) / (hi - lo) : v;
+  if (z) {
+    real d = lg_mul(K.obs_noise_std, *z);
+    if (!K.normalize_obs) d = lg_mul(lg_mul(d, hi - lo), R(0.5));
+    o = lg_add(o, d);
+  }
+  return o;
+}
+
+// _fill_states' scale_transform of raw states value v
+LG_HD real lg_state_value(const LgTailConsts& K, real v, real lo, real hi) {
+  return K.normalize_obs ? R(2.) * (v - (lo + hi) * R(0.5)) / (hi - lo) : v;
+}
+
+// One env of the tail: the step (reset = 0) or env_reset's tail (reset = 1:
+// the observation, the history slots and the frame counter alone). The
+// raw observation goes to `raw` (this env's row); lg_obs_value and
+// lg_state_value finish it and the states, whose other columns are
+// lg_state_extra's. Every input is loaded first, so the loads go out
+// together, ahead of the stores.
+LG_HD void mdp_tail_env(const LgTailConsts& K, const LgTailIO& io, int n, int env, int reset,
+                        real* raw) {
+  const size_t e = (size_t)env, ns = (size_t)n;
+  const real* S = io.state;
+  const real* T = io.tips;
+  real qs[18], pos[3], quat[4], gpos[3], gq[4], tip[9], act[18], h[3];
+  for (int i = 0; i < 18; ++i) qs[i] = S[i * ns + e];
+  for (int i = 0; i < 3; ++i) pos[i] = S[(18 + i) * ns + e];
+  for (int i = 0; i < 4; ++i) quat[i] = S[(21 + i) * ns + e];
+  for (int i = 0; i < 3; ++i) gpos[i] = io.goal_pose[i * ns + e];
+  for (int i = 0; i < 4; ++i) gq[i] = io.goal_pose[(3 + i) * ns + e];
+  for (int f = 0; f < 3; ++f)
+    for (int c = 0; c < 3; ++c) tip[3 * f + c] = T[(LG_TIP_ROWS * f + c) * ns + e];
+  for (int i = 0; i < K.action_dim; ++i) act[i] = io.action[e * K.action_dim + i];
+  for (int i = 0; i < 3; ++i) h[i] = io.half_extents[e * 3 + i];
+  const int32_t frames = *io.frames + (reset ? 1 : K.control_decimation);
+  real w[4] = {R(0.), R(0.), R(0.), R(0.)}, tp[9], opp[3], oqp[4], level = R(0.);
+  bool reset_in = false, goal_reset_in = false;
+  int32_t steps_in = 0, successes_in = 0;
+  if (!reset) {
+    if (K.goal_rotation_active)
+      for (int i = 0; i < 3; ++i) w[i] = io.goal_angvel[i * ns + e];
+    for (int i = 0; i < 9; ++i) tp[i] = io.tip_prev[i * ns + e];
+    for (int i = 0; i < 3; ++i) opp[i] = io.obj_prev[i * ns + e];
+    for (int i = 0; i < 4; ++i) oqp[i] = io.obj_prev[(3 + i) * ns + e];
+    if (K.curriculum_success_gated) level = *io.level;
+    reset_in = io.reset_buf[e] != 0;
+    goal_reset_in = io.goal_reset_buf[e] != 0;
+    steps_in = io.steps_count[e];
+    successes_in = io.successes[e];
+  }
+
+  if (!reset && K.goal_rotation_active) {
+    // q' = normalize(q + h/2 * (w, 0) q)
+    real dq[4], nq[4];
+    lg_qmul(w, gq, dq);
+    for (int i = 0; i < 4; ++i) nq[i] = lg_add(gq[i], lg_mul(K.goal_half_h, dq[i]));
+    const real inv = lg_rsqrt(lg_add(lg_sq3(nq[0], nq[1], nq[2]), lg_mul(nq[3], nq[3])));
+    for (int i = 0; i < 4; ++i) gq[i] = nq[i] * inv;
+  }
+
+  // the raw observation [q | qd | object pose | goal pose | action (| keypoints)]
+  int j = 0;
+  for (int i = 0; i < 18; ++i) raw[j++] = qs[i];
+  for (int i = 0; i < 3; ++i) raw[j++] = pos[i];
+  for (int i = 0; i < 4; ++i) raw[j++] = quat[i];
+  for (int i = 0; i < 3; ++i) raw[j++] = gpos[i];
+  for (int i = 0; i < 4; ++i) raw[j++] = gq[i];
+  for (int i = 0; i < K.action_dim; ++i) raw[j++] = act[i];
+
+  // the cube corners: keypoint observations and the keypoint reward share
+  // the rotated corners, each summed as its own plain formula sums it
+  const LgTerm& kp = K.terms[6];
+  const bool kp_reward = !reset && kp.activate;
+  real kp_acc = R(0.);
+  if (K.use_keypoint_obs || kp_reward) {
+    int k = 0;
+    for (int sx = -1; sx <= 1; sx += 2)
+      for (int sy = -1; sy <= 1; sy += 2)
+        for (int sz = -1; sz <= 1; sz += 2) {
+          const real local[3] = {(real)sx * h[0], (real)sy * h[1], (real)sz * h[2]};
+          real oc[3], gc[3];
+          lg_quat_rotate(quat, local, oc);
+          lg_quat_rotate(gq, local, gc);
+          if (K.use_keypoint_obs)
+            for (int c = 0; c < 3; ++c) {
+              raw[j + 3 * k + c] = pos[c] + oc[c];
+              raw[j + 24 + 3 * k + c] = gpos[c] + gc[c];
+            }
+          if (kp_reward) {
+            real d2 = R(0.);
+            for (int c = 0; c < 3; ++c) {
+              const real d = pos[c] + oc[c] - gpos[c] - gc[c];
+              d2 = lg_add(d2, lg_mul(d, d));
+            }
+            kp_acc = kp_acc + lg_lgsk(lg_sqrt(d2), kp.kernel_scale);
+          }
+          ++k;
+        }
+  }
+
+  if (env == 0) *io.out_frames = frames;
+  if (reset) {
+    for (int i = 0; i < 9; ++i) io.out_tip_prev[i * ns + e] = tip[i];
+    for (int i = 0; i < 3; ++i) io.out_obj_prev[i * ns + e] = pos[i];
+    for (int i = 0; i < 4; ++i) io.out_obj_prev[(3 + i) * ns + e] = quat[i];
+    return;
+  }
+
+  // the reward terms (compute_rewards_c), on the float32 env-step count
+  const float step = (float)frames * (float)K.envs_counted;
+  real value[LG_NUM_TERMS];
+  {
+    const LgTerm& t = K.terms[0];  // finger_reach_object_rate
+    real rate = R(0.);
+    for (int f = 0; f < 3; ++f) {
+      const real curr = lg_norm_p(tip[3 * f] - pos[0], tip[3 * f + 1] - pos[1],
+                                  tip[3 * f + 2] - pos[2], t);
+      const real prev = lg_norm_p(tp[3 * f] - opp[0], tp[3 * f + 1] - opp[1],
+                                  tp[3 * f + 2] - opp[2], t);
+      rate = rate + (curr - prev);
+    }
+    value[0] = (real)((float)t.weight * lg_window_sched(t, step)) * rate;
+  }
+  {
+    const LgTerm& t = K.terms[1];  // finger_move_penalty
+    real sq = R(0.);
+    for (int i = 0; i < 9; ++i) {
+      const real v = lg_div_scalar(tip[i] - tp[i], K.dt);
+      sq = lg_add(sq, lg_mul(v, v));
+    }
+    value[1] = t.weight * sq;
+  }
+  const real dist = lg_dist3(pos, gpos);
+  {
+    const LgTerm& t = K.terms[2];  // object_dist
+    value[2] = (real)((float)t.weight_dt * lg_window_sched(t, step)) * lg_lgsk(dist, R(50.));
+  }
+  const real angles = lg_quat_diff_rad(quat, gq);
+  {
+    const LgTerm& t = K.terms[3];  // object_rot
+    const real sched_dt = (real)(lg_window_sched(t, step) * (float)K.dt);
+    value[3] = t.weight * (sched_dt / lg_add(lg_mul(t.scale, lg_fabs(angles)), t.scale));
+  }
+  {
+    const LgTerm& t = K.terms[4];  // object_rot_delta
+    const real last = lg_fabs(lg_quat_diff_rad(oqp, gq));
+    value[4] = (real)((float)t.weight * lg_linear_sched(t, step)) * (lg_fabs(angles) - last);
+  }
+  value[5] = K.terms[5].weight * (dist - lg_dist3(opp, gpos));  // object_move
+  value[6] = kp_reward
+                 ? (real)((float)kp.weight_dt * lg_window_sched(kp, step)) * (kp_acc / R(8.))
+                 : R(0.);
+  real reward = R(0.);
+  for (int i = 0; i < LG_NUM_TERMS; ++i) {
+    if (K.terms[i].activate) reward = reward + value[i];
+    io.out_info[i * ns + e] = value[i];
+  }
+
+  // success termination (_check_termination) and its tolerance curriculum
+  real pos_tol = K.position_tolerance, ori_tol = K.orientation_tolerance, frac = R(0.);
+  if (K.curriculum_success_gated) {
+    frac = lg_fmin(lg_fmax(level, R(0.)), R(1.));
+    pos_tol = lg_add(K.position_tolerance_init, lg_mul(frac, K.position_tolerance_span));
+    ori_tol = lg_add(K.orientation_tolerance_init, lg_mul(frac, K.orientation_tolerance_span));
+  } else if (K.tolerance_anneal_frames > R(0.)) {
+    const float f =
+        lg_fmin(lg_fmax(lg_div_scalar(step, (float)K.tolerance_anneal_frames), 0.0f), 1.0f);
+    pos_tol = (real)lg_add((float)K.position_tolerance_init,
+                           lg_mul(f, (float)K.position_tolerance_span));
+    ori_tol = (real)lg_add((float)K.orientation_tolerance_init,
+                           lg_mul(f, (float)K.orientation_tolerance_span));
+    frac = (real)f;
+  }
+  const real pos_dist = lg_dist3(gpos, pos);
+  const real ori_dist = angles;
+  const bool pos_ok = pos_dist <= pos_tol, ori_ok = ori_dist <= ori_tol;
+  const bool completion = K.task_difficulty < 4    ? pos_ok
+                          : K.task_difficulty == 4 ? (pos_ok && ori_ok)
+                                                   : ori_ok;
+  bool goal_reset = goal_reset_in;
+  int32_t successes;
+  if (K.termination_activate) {
+    reward = reward + K.termination_bonus * (completion ? R(1.) : R(0.));
+    goal_reset = completion;
+    successes = successes_in + (completion ? 1 : 0);
+  } else {
+    // the reference's quirk: successes becomes a 0/1 flag when termination is off
+    successes = (goal_reset_in && successes_in > 0) ? 1 : 0;
+  }
+
+  // the counters and dones
+  const int32_t steps = steps_in + 1;
+  bool reset_buf = reset_in;
+  if (K.episode_length) reset_buf = reset_buf || steps >= K.episode_length;
+  const bool dones = K.dones_and ? (reset_buf && goal_reset) : (reset_buf || goal_reset);
+
+  io.out_reward[e] = reward;
+  io.out_dones[e] = dones;
+  io.out_reset_buf[e] = reset_buf;
+  io.out_goal_reset_buf[e] = goal_reset;
+  io.out_steps_count[e] = steps;
+  io.out_successes[e] = successes;
+  // the history slots: this step's tips and object pose; the goal
+  for (int i = 0; i < 9; ++i) io.out_tip_prev[i * ns + e] = tip[i];
+  for (int i = 0; i < 3; ++i) io.out_obj_prev[i * ns + e] = pos[i];
+  for (int i = 0; i < 4; ++i) io.out_obj_prev[(3 + i) * ns + e] = quat[i];
+  for (int i = 0; i < 3; ++i) io.out_goal_pose[i * ns + e] = gpos[i];
+  for (int i = 0; i < 4; ++i) io.out_goal_pose[(3 + i) * ns + e] = gq[i];
+
+  // this env's column of the info means and counts
+  real* info = io.out_info;
+  info[LG_INFO_POS_DIST * ns + e] = pos_dist;
+  info[LG_INFO_ORI_DIST * ns + e] = ori_dist;
+  info[LG_INFO_STRICT * ns + e] =
+      (pos_dist <= K.position_tolerance && ori_dist <= K.orientation_tolerance) ? R(1.) : R(0.);
+  info[LG_INFO_SUCCESSES * ns + e] = (real)successes;
+  info[LG_INFO_POS_COUNT * ns + e] = pos_ok ? R(1.) : R(0.);
+  info[LG_INFO_ORI_COUNT * ns + e] = ori_ok ? R(1.) : R(0.);
+  if (env == 0) {
+    io.out_scalars[0] = pos_tol;
+    io.out_scalars[1] = ori_tol;
+    io.out_scalars[2] = frac;
+  }
+}
+
 #ifdef __CUDACC__
 
 // LG_ROLES warps per block: role = threadIdx.x / LG_EPB, env in block =
@@ -1436,6 +1954,69 @@ extern "C" int leibniz_fingertip_state(const real* q, const real* qd, real* out,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of a tail launch: the block's raw observations,
+// [env][column], and the other columns of its raw states, [column][env]
+// padded to LG_TAIL_EPB + 1, so that both phases' accesses are free of
+// bank conflicts.
+static size_t lg_tail_smem_bytes(const LgTailConsts& K, int reset) {
+  const bool states = !reset && K.state_dim > 0;
+  return ((size_t)LG_TAIL_EPB * K.obs_dim + (states ? LG_STATE_EXTRA * (LG_TAIL_EPB + 1) : 0)) *
+         sizeof(real);
+}
+
+// A block holds LG_TAIL_EPB envs and four warps. Warp 0 computes one env a
+// lane (mdp_tail_env), the raw observation into shared memory; warps 1-3
+// meanwhile gather the other columns of the raw states there. Then every
+// thread takes observation and states columns and writes them finished for
+// each of the block's envs: a row's columns go out together, so the
+// stores coalesce, and the noise draws are read the same way. The ragged
+// edge computes and stores nothing past n.
+__global__ void __launch_bounds__(LG_TAIL_THREADS)
+mdp_tail_kernel(const LgTailConsts K, const LgTailIO io, int n, int reset) {
+  extern __shared__ real lg_tail_smem[];
+  const int od = K.obs_dim, sd = reset ? 0 : K.state_dim;
+  const int t = threadIdx.x, env0 = blockIdx.x * LG_TAIL_EPB;
+  const int rows = min(LG_TAIL_EPB, n - env0);
+  real* obs_s = lg_tail_smem;
+  real* ext_s = obs_s + LG_TAIL_EPB * od;
+  if (t < LG_TAIL_EPB) {
+    if (t < rows) mdp_tail_env(K, io, n, env0 + t, reset, obs_s + t * od);
+  } else if (sd) {
+    for (int i = t - LG_TAIL_EPB; i < LG_STATE_EXTRA * LG_TAIL_EPB;
+         i += LG_TAIL_THREADS - LG_TAIL_EPB) {
+      const int r = i % LG_TAIL_EPB, k = i / LG_TAIL_EPB;
+      if (r < rows) ext_s[k * (LG_TAIL_EPB + 1) + r] = lg_state_extra(io, n, env0 + r, k);
+    }
+  }
+  __syncthreads();
+  for (int j = t; j < od; j += LG_TAIL_THREADS) {
+    const real lo = io.obs_low[j], hi = io.obs_high[j];
+    for (int r = 0; r < rows; ++r) {
+      const size_t at = (size_t)(env0 + r) * od + j;
+      io.out_obs[at] = lg_obs_value(K, obs_s[r * od + j], lo, hi, io.noise ? io.noise + at : nullptr);
+    }
+  }
+  for (int j = t; j < sd; j += LG_TAIL_THREADS) {
+    const real lo = io.state_low[j], hi = io.state_high[j];
+    for (int r = 0; r < rows; ++r) {
+      const real v = j < od ? obs_s[r * od + j] : ext_s[(j - od) * (LG_TAIL_EPB + 1) + r];
+      io.out_states[(size_t)(env0 + r) * sd + j] = lg_state_value(K, v, lo, hi);
+    }
+  }
+}
+
+// Launches on `stream`; allocates nothing. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an observation wider than LG_TAIL_MAX_OBS.
+extern "C" int leibniz_mdp_tail(const LgTailConsts* consts, const LgTailIO* io, int n, int reset,
+                                void* stream) {
+  if (consts->obs_dim > LG_TAIL_MAX_OBS) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const int blocks = (n + LG_TAIL_EPB - 1) / LG_TAIL_EPB;
+  mdp_tail_kernel<<<blocks, LG_TAIL_THREADS, lg_tail_smem_bytes(*consts, reset),
+                    (cudaStream_t)stream>>>(*consts, *io, n, reset);
+  return (int)cudaGetLastError();
+}
+
 #endif  // __CUDACC__
 
 // The same phases on the host, one env after another, for tests of this
@@ -1475,4 +2056,60 @@ extern "C" int leibniz_fingertip_state_host(const real* q, const real* qd, real*
   return 0;
 }
 
+extern "C" int leibniz_mdp_tail_host(const LgTailConsts* consts, const LgTailIO* io, int n,
+                                     int reset) {
+  const LgTailConsts& K = *consts;
+  const int od = K.obs_dim, sd = reset ? 0 : K.state_dim;
+  if (od > LG_TAIL_MAX_OBS) return 1;
+  real raw[LG_TAIL_MAX_OBS];
+  for (int env = 0; env < n; ++env) {
+    mdp_tail_env(K, *io, n, env, reset, raw);
+    for (int j = 0; j < od; ++j) {
+      const size_t at = (size_t)env * od + j;
+      io->out_obs[at] = lg_obs_value(K, raw[j], io->obs_low[j], io->obs_high[j],
+                                     io->noise ? io->noise + at : nullptr);
+    }
+    for (int j = 0; j < sd; ++j) {
+      const real v = j < od ? raw[j] : lg_state_extra(*io, n, env, j - od);
+      io->out_states[(size_t)env * sd + j] = lg_state_value(K, v, io->state_low[j],
+                                                            io->state_high[j]);
+    }
+  }
+  return 0;
+}
+
 extern "C" int leibniz_consts_size() { return (int)sizeof(LgConsts); }
+
+// The fields of the tail's structs as this build lays them out, for the
+// check that the ctypes mirrors in ops/cuda_engine.py match: struct `which`
+// (0 LgTerm, 1 LgTailConsts, 2 LgTailIO), field i's name, offset and size;
+// i = -1 gives the struct's size. Returns 1 past the last field.
+struct LgField {
+  const char* name;
+  int offset, size;
+};
+#define LG_FIELD(S, f) {#f, (int)offsetof(S, f), (int)sizeof(((S*)0)->f)},
+#define LG_TERM_FIELD(f) LG_FIELD(LgTerm, f)
+#define LG_CONSTS_FIELD(f) LG_FIELD(LgTailConsts, f)
+#define LG_IO_FIELD(f) LG_FIELD(LgTailIO, f)
+static const LgField lg_term_fields[] = {LG_TERM_FIELDS(LG_TERM_FIELD)};
+static const LgField lg_tail_consts_fields[] = {LG_TAIL_CONSTS_FIELDS(LG_CONSTS_FIELD)};
+static const LgField lg_tail_io_fields[] = {LG_TAIL_IO_FIELDS(LG_IO_FIELD)};
+
+extern "C" int leibniz_struct_field(int which, int i, const char** name, int* offset,
+                                    int* size) {
+  const LgField* fields[3] = {lg_term_fields, lg_tail_consts_fields, lg_tail_io_fields};
+  const int counts[3] = {(int)(sizeof(lg_term_fields) / sizeof(LgField)),
+                         (int)(sizeof(lg_tail_consts_fields) / sizeof(LgField)),
+                         (int)(sizeof(lg_tail_io_fields) / sizeof(LgField))};
+  const int sizes[3] = {(int)sizeof(LgTerm), (int)sizeof(LgTailConsts), (int)sizeof(LgTailIO)};
+  if (which < 0 || which > 2 || i >= counts[which]) return 1;
+  if (i < 0) {
+    *size = sizes[which];
+    return 0;
+  }
+  *name = fields[which][i].name;
+  *offset = fields[which][i].offset;
+  *size = fields[which][i].size;
+  return 0;
+}

@@ -28,6 +28,7 @@ success-gated (``EnvParams.curriculum_level``) goal and tolerance curricula.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -45,6 +46,7 @@ from leibnizgym_tpu_torch.envs.trifinger.config import (
 )
 from leibnizgym_tpu_torch.envs.trifinger.dims import CuboidalObject, SphereObject
 from leibnizgym_tpu_torch.envs.trifinger.rewards import (
+    REWARD_TERM_NAMES,
     RewardTermSpec,
     _qmul_c,
     build_reward_specs,
@@ -56,6 +58,7 @@ from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops import engine as reference_engine
 from leibnizgym_tpu_torch.ops.capture import Captured
 from leibnizgym_tpu_torch.ops.cuda_engine import physics_step_cuda, physics_step_plain
+from leibnizgym_tpu_torch.ops.engine_v2 import packed_view
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
 from leibnizgym_tpu_torch.parallel.mesh import shard_batch
 from leibnizgym_tpu_torch.utils.math import (
@@ -918,11 +921,23 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     norm_goal, dr, obs_noise), ``draw_step_randoms``' layout: the random
     blocks of this step's full and goal resets, then the DR blocks and the
     observation noise, which may be left out (or None) where the config does
-    not use them."""
+    not use them. After the physics, the step's tail is one launch of the
+    tail kernel on the card (``_step_tail_cuda``) and plain PyTorch on the
+    CPU (``_step_tail_plain``)."""
+    head = _step_head(static, params, state, action, draws)
+    tail = _step_tail_cuda if head[1].q.is_cuda else _step_tail_plain
+    return tail(static, params, *head)
+
+
+def _step_head(static: EnvStatic, params: EnvParams, state: EnvState,
+               action: torch.Tensor, draws):
+    """``env_step`` up to the physics: the masked resets, the torque and
+    ``control_decimation`` physics calls. Returns (state after the resets,
+    physics, torque (N, 9), tip wrench (N, 18), action buffer, observation
+    noise or None): the tails' inputs."""
     u_reset, norm_reset, u_goal, norm_goal, dr_blocks, obs_noise = (tuple(draws)
                                                                     + (None, None))[:6]
     n = static.num_envs
-    info: Dict[str, torch.Tensor] = {}
 
     # reset envs first: observations need post-reset physics
     reset_mask = state.reset_buf
@@ -937,7 +952,19 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     physics, tip_wrench6 = _simulate(
         static, state.physics, tau, state.scene, static.control_decimation
     )
-    tip_wrench = tip_wrench6.reshape(n, 18)
+    return state, physics, tau, tip_wrench6.reshape(n, 18), action_buf, obs_noise
+
+
+def _step_tail_plain(static: EnvStatic, params: EnvParams, state: EnvState,
+                     physics: PhysicsState, tau: torch.Tensor, tip_wrench: torch.Tensor,
+                     action_buf: torch.Tensor, obs_noise):
+    """``env_step`` after the physics, in plain PyTorch (the CPU's path,
+    and the reference of ``_step_tail_cuda``): the goal's rotation, the
+    fingertips, the rewards and termination, the counters, the observation
+    and states, the next state. ``state`` is the step's state after its
+    resets; returns ``env_step``'s (state, obs, states, reward, dones,
+    info)."""
+    info: Dict[str, torch.Tensor] = {}
     frames = state.frames + static.control_decimation
 
     # goal rotation: the first-order update q' = normalize(q + h/2 * (w, 0) q)
@@ -1011,6 +1038,150 @@ def env_step(static: EnvStatic, params: EnvParams, state: EnvState,
     return new_state, obs, states, reward, dones, info
 
 
+# ---------------------------------------------------------------------------
+# The tail on the card: one launch of csrc/physics_step.cu mdp_tail_kernel
+# ---------------------------------------------------------------------------
+
+# the rows of the tail kernel's info block by name: every reward term's in
+# REWARD_TERM_NAMES order, then cuda_engine.TAIL_INFO_NAMES
+_INFO_ROW = {name: i for i, name in
+             enumerate(REWARD_TERM_NAMES + cuda_engine.TAIL_INFO_NAMES)}
+
+
+# every RewardTermSpec field but ``name`` reaches the kernel under its own
+# name, and these Python-double expressions of the plain version with it
+_TERM_DERIVED = {
+    "weight_dt": lambda s, dt: s.weight * dt,
+    "sched_span": lambda s, dt: s.sched_end - s.sched_start,
+    "inv_p": lambda s, dt: 1.0 / s.norm_p,
+    "kernel_scale": lambda s, dt: s.scale if s.scale != 1.0 else 30.0,
+    "sched_enabled": lambda s, dt: int(s.sched_enabled),
+}
+
+
+def tail_consts(static: EnvStatic, struct=cuda_engine.TailConsts):
+    """The tail kernel's constants (``struct LgTailConsts``) of ``static``:
+    the reward specs in REWARD_TERM_NAMES order, the termination, the
+    curricula, the observation's flags and widths. Python-double
+    expressions of the plain version are evaluated in double and rounded
+    once, as PyTorch rounds a Python float operand."""
+    k = struct()
+    specs = static.reward_spec_dict()
+    for i, name in enumerate(REWARD_TERM_NAMES):
+        spec, term = specs[name], k.terms[i]
+        for f in dataclasses.fields(RewardTermSpec):
+            if f.name != "name":
+                setattr(term, f.name, getattr(spec, f.name))
+        for field, fn in _TERM_DERIVED.items():
+            setattr(term, field, fn(spec, static.dt))
+    k.dt = static.dt
+    k.goal_half_h = 0.5 * (static.dt * static.control_decimation)
+    k.obs_noise_std = static.obs_noise_std
+    k.termination_bonus = static.termination_bonus
+    for which in ("position", "orientation"):
+        final, init = (getattr(static, f"{which}_tolerance"),
+                       getattr(static, f"{which}_tolerance_init"))
+        setattr(k, f"{which}_tolerance", final)
+        setattr(k, f"{which}_tolerance_init", init)
+        setattr(k, f"{which}_tolerance_span", final - init)
+    k.tolerance_anneal_frames = static.tolerance_anneal_frames
+    k.envs_counted = static.envs_counted
+    k.control_decimation = static.control_decimation
+    k.episode_length = static.episode_length
+    k.task_difficulty = static.task_difficulty
+    k.termination_activate = int(static.termination_activate)
+    k.curriculum_success_gated = int(static.curriculum_success_gated)
+    k.dones_and = int(static.dones_mode == "and")
+    k.normalize_obs = int(static.normalize_obs)
+    k.asymmetric_obs = int(static.asymmetric_obs)
+    k.use_keypoint_obs = int(static.use_keypoint_obs)
+    k.goal_rotation_active = int(static.goal_rotation_active)
+    k.action_dim, k.obs_dim, k.state_dim = static.action_dim, static.obs_dim, static.state_dim
+    return k
+
+
+@functools.lru_cache(maxsize=64)
+def _tail_consts_for(static: EnvStatic):
+    """``tail_consts(static)``, built once per ``static``; the launch reads
+    it and does not write it."""
+    return tail_consts(static)
+
+
+def _tail_info(static: EnvStatic, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The step's ``info`` from the tail kernel's outputs, under the plain
+    tail's keys, in its order and dtypes: the means of the info block's
+    rows in one reduction, the two counts in another, the tolerances and
+    the curriculum level from its scalars; the rows of active terms alone."""
+    rows, specs = _INFO_ROW, static.reward_spec_dict()
+    means = out["info"].mean(dim=1)
+    counts = out["info"][-2:].sum(dim=1, dtype=torch.int64)
+    scalars = out["scalars"]
+    info = {f"env/rewards/{name}": means[rows[name]]
+            for name in REWARD_TERM_NAMES if specs[name].activate}
+    if static.curriculum_success_gated or static.tolerance_anneal_frames > 0.0:
+        info["env/position_tolerance"] = scalars[0]
+        info["env/orientation_tolerance"] = scalars[1]
+    info["env/current_position_goal/count"] = counts[0]
+    info["env/current_orientation_goal/count"] = counts[1]
+    info["env/pos_dist_mean"] = means[rows["pos_dist"]]
+    info["env/ori_dist_mean"] = means[rows["ori_dist"]]
+    if static.curriculum_success_gated:
+        info["env/strict_success_frac"] = means[rows["strict"]]
+        info["env/curriculum_level"] = scalars[2]
+    info["env/average_consecutive_success"] = means[rows["successes"]]
+    return info
+
+
+def _tail_inputs(params: EnvParams, state: EnvState, s31: torch.Tensor, tips: torch.Tensor,
+                 action_buf: torch.Tensor, obs_noise) -> Dict[str, torch.Tensor]:
+    """The tail kernel's inputs (``cuda_engine.TAIL_INPUTS``) as the env
+    keeps them: the physics step's (31, N) output ``s31`` and the fingertip
+    rows ``tips`` (39, N), read in place, the rest the state's and params'
+    own tensors. The goal's angular velocity, which a reset samples as
+    the transpose of (N, 3) rows when the goal rotates, is made contiguous
+    (a copy only then)."""
+    return {
+        "state": s31, "tips": tips,
+        "goal_pose": state.goal_pose_cm, "goal_angvel": state.goal_angvel_cm.contiguous(),
+        "tip_prev": state.tip_pos_prev_cm, "obj_prev": state.obj_posquat_prev_cm,
+        "half_extents": state.scene.cube_half_extents, "action": action_buf,
+        "noise": obs_noise, "obs_low": params.obs_scale_low, "obs_high": params.obs_scale_high,
+        "state_low": params.state_scale_low, "state_high": params.state_scale_high,
+        "level": params.curriculum_level, "frames": state.frames,
+        "reset_buf": state.reset_buf, "goal_reset_buf": state.goal_reset_buf,
+        "steps_count": state.steps_count, "successes": state.successes,
+    }
+
+
+def _step_tail_cuda(static: EnvStatic, params: EnvParams, state: EnvState,
+                    physics: PhysicsState, tau: torch.Tensor, tip_wrench: torch.Tensor,
+                    action_buf: torch.Tensor, obs_noise):
+    """``_step_tail_plain`` on the card: the fingertip kernel, then one
+    launch of the tail kernel, then the info means and counts in two
+    reductions."""
+    s31 = packed_view(physics)
+    tips = cuda_engine.fingertip_state_cuda(s31[0:9], s31[9:18])
+    inputs = _tail_inputs(params, state, s31, tips, action_buf, obs_noise)
+    inputs.update(torque=tau, wrench=tip_wrench)
+    out = cuda_engine.mdp_tail_cuda(_tail_consts_for(static), inputs)
+    new_state = state.replace(
+        physics=physics,
+        goal_pose_cm=out["goal_pose"],
+        action_buf=action_buf,
+        applied_torque=tau,
+        tip_wrench=tip_wrench,
+        reset_buf=out["reset_buf"],
+        goal_reset_buf=out["goal_reset_buf"],
+        steps_count=out["steps_count"],
+        successes=out["successes"],
+        tip_pos_prev_cm=out["tip_prev"],
+        obj_posquat_prev_cm=out["obj_prev"],
+        frames=out["frames"],
+    )
+    return (new_state, out["obs"], out["states"], out["reward"], out["dones"],
+            _tail_info(static, out))
+
+
 def initial_state(static: EnvStatic, params: EnvParams) -> EnvState:
     """The all-default state a full reset starts from, on the params' device
     and in their dtype."""
@@ -1050,7 +1221,16 @@ def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None,
               dr_blocks=None, obs_noise=None):
     """Full reset of all envs from the draws (``draw_init_randoms``' layout:
     u (n, 25), norm, DR blocks, observation noise): reset, a zero-action
-    torque, ONE physics call, observations."""
+    torque, ONE physics call, observations (the tail kernel on the card,
+    the plain tail on the CPU)."""
+    state = _reset_head(static, params, u, norm, dr_blocks)
+    tail = _reset_tail_cuda if state.physics.q.is_cuda else _reset_tail_plain
+    return tail(static, params, state, obs_noise)
+
+
+def _reset_head(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None,
+                dr_blocks=None) -> EnvState:
+    """``env_reset`` up to its physics call: the reset state after it."""
     n = static.num_envs
     device = u.device
     state = initial_state(static, params)
@@ -1061,7 +1241,15 @@ def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None,
     tau = compute_torque(static, params, state.action_buf, state.physics.q,
                          state.physics.qd, state.pd_scale)
     physics, tip_wrench6 = _simulate(static, state.physics, tau, state.scene, 1)
+    return state.replace(physics=physics, applied_torque=tau,
+                         tip_wrench=tip_wrench6.reshape(n, 18))
 
+
+def _reset_tail_plain(static: EnvStatic, params: EnvParams, state: EnvState, obs_noise):
+    """``env_reset`` after the physics, in plain PyTorch: the observation,
+    the history slots and the frame counter of ``state``, the reset state
+    after its one physics call. Returns (state, obs)."""
+    physics = state.physics
     tips = _fingertip_components(physics)
     obj_pos, obj_quat, _, _ = _object_components(physics)
     goal_pos = tuple(state.goal_pose_cm[i] for i in range(3))
@@ -1070,14 +1258,23 @@ def env_reset(static: EnvStatic, params: EnvParams, u: torch.Tensor, norm=None,
                                 goal_quat, state.action_buf)
     obs = _observe(static, params, obs_raw, obs_noise)
     state = state.replace(
-        physics=physics,
-        applied_torque=tau,
-        tip_wrench=tip_wrench6.reshape(n, 18),
         tip_pos_prev_cm=torch.stack([tips[f][0][c] for f in range(3) for c in range(3)]),
         obj_posquat_prev_cm=torch.stack(list(obj_pos) + list(obj_quat)),
         frames=state.frames + 1,
     )
     return state, obs
+
+
+def _reset_tail_cuda(static: EnvStatic, params: EnvParams, state: EnvState, obs_noise):
+    """``_reset_tail_plain`` on the card: the fingertip kernel, then one
+    launch of the tail kernel in its reset form."""
+    s31 = packed_view(state.physics)
+    tips = cuda_engine.fingertip_state_cuda(s31[0:9], s31[9:18])
+    inputs = _tail_inputs(params, state, s31, tips, state.action_buf, obs_noise)
+    out = cuda_engine.mdp_tail_cuda(_tail_consts_for(static), inputs, reset=True)
+    state = state.replace(tip_pos_prev_cm=out["tip_prev"], obj_posquat_prev_cm=out["obj_prev"],
+                          frames=out["frames"])
+    return state, out["obs"]
 
 
 # ---------------------------------------------------------------------------

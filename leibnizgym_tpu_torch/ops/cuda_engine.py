@@ -1,5 +1,6 @@
-"""The physics step and the fingertip kinematics as hand-written CUDA
-kernels (the first the counterpart of ``ops/pallas_engine.py``).
+"""The physics step, the fingertip kinematics and the env step's MDP tail
+as hand-written CUDA kernels (the first the counterpart of
+``ops/pallas_engine.py``).
 
 ``csrc/physics_step.cu`` advances every env through one control step on the
 component-major (C, N) layout, 32 envs per block (4 warps: the solver rows
@@ -8,16 +9,23 @@ state (31, N), params (40, N), tau (9, N) in; state (31, N) and tip impulse
 sums (18, N) out. Its second kernel, ``fingertip_state_kernel``, computes
 ``engine_v2.fingertip_components_v2`` in one launch, one thread per env:
 joint positions and velocities (9, N) each in (rows 0-8 and 9-17 of the
-packed state, read in place), (39, N) out. Both are built with nvcc at
-first use into ``build/leibnizgym_tpu_torch/<hash>/`` (the hash covers the
-source and the flags), one library, loaded with ctypes.
+packed state, read in place), (39, N) out. Its third, ``mdp_tail_kernel``
+(``mdp_tail_cuda``), computes what the env step computes after those two,
+one thread per env: the goal's rotation, the rewards, the termination, the
+counters, the observation, the asymmetric states, the history slots and
+each env's column of the info means (``TAIL_INPUTS`` in, ``TAIL_OUTPUTS``
+out), its constants a ``TailConsts`` the env builds once from its
+``EnvStatic``. All three are built with nvcc at first use into
+``build/leibnizgym_tpu_torch/<hash>/`` (the hash covers the source and the
+flags), one library, loaded with ctypes.
 
 Dispatch is by the tensors' device and nothing else: ``physics_step_cuda``
 and ``fingertip_components_cuda`` on CUDA tensors launch their kernel (or
 raise), on CPU tensors they run the plain PyTorch versions
 ``physics_step_plain`` and ``fingertip_components_v2``
-(``ops/engine_v2.py``). ``launch_count`` counts the launches of both
-kernels, those inside CUDA graphs too: a graph captured through
+(``ops/engine_v2.py``); the env calls ``mdp_tail_cuda`` on CUDA tensors
+alone and keeps its plain tail for the CPU. ``launch_count`` counts the
+launches of the three kernels, those inside CUDA graphs too: a graph captured through
 ``ops/capture.py``'s ``CountedGraph`` remembers how many launches it
 captured, and each replay adds that many. The physics kernel's first
 launch on a device raises its shared-memory cap there, so it must not fall
@@ -31,7 +39,8 @@ control step of the plain version, which follows the reference's
 holds it to a walk of the reference's jaxpr); ``step_bytes(n)`` counts each
 input read once and each output written once; ``bound_ms`` is the larger of
 the two over the card's published float32 and memory rates. The fingertip
-kernel is bound by its bytes, ``tip_bytes(n)``.
+and tail kernels are bound by their bytes, ``tip_bytes(n)`` and
+``tail_bytes(n, consts)``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import dataclasses
 import fcntl
 import functools
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -68,7 +78,8 @@ __all__ = [
     "step_packed_cuda", "launch_count", "build", "build_info", "kernel_consts",
     "occupancy", "step_flops", "step_chain", "step_bytes",
     "bound_ms", "ENVS_PER_BLOCK", "fingertip_state_cuda", "fingertip_components_cuda",
-    "TIP_ROWS", "tip_bytes",
+    "TIP_ROWS", "tip_bytes", "mdp_tail_cuda", "tail_io", "TailTerm", "TailConsts",
+    "TailIO", "TAIL_INPUTS", "TAIL_OUTPUTS", "TAIL_INFO_NAMES", "tail_bytes",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -256,16 +267,48 @@ def build() -> ctypes.CDLL:
         ptr, ptr, ptr, ctypes.c_int, ctypes.POINTER(_KernelConsts), ptr,
     ]
     lib.leibniz_fingertip_state.restype = ctypes.c_int
+    lib.leibniz_mdp_tail.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int, ptr]
+    lib.leibniz_mdp_tail.restype = ctypes.c_int
     lib.leibniz_consts_size.restype = ctypes.c_int
     if lib.leibniz_consts_size() != ctypes.sizeof(_KernelConsts):
         raise RuntimeError("LgConsts layout differs between physics_step.cu and Python")
+    for which, struct in enumerate((TailTerm, TailConsts, TailIO)):
+        if struct_layout(lib, which) != ctypes_layout(struct):
+            raise RuntimeError(f"{struct.__name__} layout differs between physics_step.cu "
+                               "and Python")
     with open(log_path) as f:
         log = f.read()
     build_info = dict(_parse_ptxas(log), seconds=time.perf_counter() - t0,
                       library=lib_path, log=log_path,
-                      fingertip=_parse_ptxas(log, "fingertip_state_kernel"))
+                      fingertip=_parse_ptxas(log, "fingertip_state_kernel"),
+                      tail=_parse_ptxas(log, "mdp_tail_kernel"))
     _lib = lib
     return lib
+
+
+def struct_layout(lib: ctypes.CDLL, which: int) -> tuple:
+    """(size, ((name, offset, size), ...)) of struct ``which`` of the tail
+    (0 ``LgTerm``, 1 ``LgTailConsts``, 2 ``LgTailIO``) as ``lib``'s build
+    of csrc/physics_step.cu lays it out."""
+    name, offset, size = ctypes.c_char_p(), ctypes.c_int(), ctypes.c_int()
+    lib.leibniz_struct_field.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_char_p),
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.leibniz_struct_field(which, -1, None, None, ctypes.byref(size))
+    total, fields, i = size.value, [], 0
+    while lib.leibniz_struct_field(which, i, ctypes.byref(name), ctypes.byref(offset),
+                                   ctypes.byref(size)) == 0:
+        fields.append((name.value.decode(), offset.value, size.value))
+        i += 1
+    return total, tuple(fields)
+
+
+def ctypes_layout(struct) -> tuple:
+    """``struct_layout``'s form of a ctypes mirror."""
+    return ctypes.sizeof(struct), tuple(
+        (name, getattr(struct, name).offset, getattr(struct, name).size)
+        for name, *_ in struct._fields_)
 
 
 def occupancy() -> dict:
@@ -280,15 +323,19 @@ def occupancy() -> dict:
             "envs_per_block": ENVS_PER_BLOCK}
 
 
-def _check(name: str, t: torch.Tensor, rows: int, n: int, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
-    if tuple(t.shape) != (rows, n):
-        raise ValueError(f"{name}: expected shape {(rows, n)}, got {tuple(t.shape)}")
+def _check_tensor(name: str, t: torch.Tensor, dtype, shape: tuple, device):
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _check(name: str, t: torch.Tensor, rows: int, n: int, device):
+    _check_tensor(name, t, torch.float32, (rows, n), device)
 
 
 def step_packed_cuda(state31: torch.Tensor, params40: torch.Tensor,
@@ -387,6 +434,170 @@ def fingertip_components_cuda(q: torch.Tensor, qd: torch.Tensor):
               for a, k in ((0, 3), (3, 4), (7, 3), (10, 3)))
         for f in range(3)
     )
+
+
+# ---------------------------------------------------------------------------
+# The MDP tail: rewards, termination, observation and states of a step
+# ---------------------------------------------------------------------------
+
+# reward terms in the kernel's struct (rewards.REWARD_TERM_NAMES' count)
+TAIL_TERMS = 7
+# the info block's rows past the reward terms' (the .cu's LG_INFO_* rows):
+# each env's column of an info mean or count
+TAIL_INFO_NAMES = ("pos_dist", "ori_dist", "strict", "successes", "pos_count", "ori_count")
+TAIL_INFO_ROWS = TAIL_TERMS + len(TAIL_INFO_NAMES)
+
+
+def _tail_structs(real):
+    """Mirrors of ``struct LgTerm`` and ``struct LgTailConsts`` in
+    csrc/physics_step.cu, whose working type ``real`` is float on the GPU
+    (a host test build may use double)."""
+    i32 = ctypes.c_int32
+
+    class LgTerm(ctypes.Structure):
+        _fields_ = [(name, real) for name in (
+            "weight", "epsilon", "scale", "sched_start", "sched_end", "weight_dt",
+            "sched_span", "inv_p", "kernel_scale")] + [
+            (name, i32) for name in ("activate", "norm_p", "sched_enabled")]
+
+    class LgTailConsts(ctypes.Structure):
+        _fields_ = [("terms", LgTerm * TAIL_TERMS)] + [(name, real) for name in (
+            "dt", "goal_half_h", "obs_noise_std", "termination_bonus",
+            "position_tolerance", "orientation_tolerance", "position_tolerance_init",
+            "orientation_tolerance_init", "position_tolerance_span",
+            "orientation_tolerance_span", "tolerance_anneal_frames")] + [
+            (name, i32) for name in (
+                "envs_counted", "control_decimation", "episode_length", "task_difficulty",
+                "termination_activate", "curriculum_success_gated", "dones_and",
+                "normalize_obs", "asymmetric_obs", "use_keypoint_obs", "goal_rotation_active",
+                "action_dim", "obs_dim", "state_dim")]
+
+    return LgTerm, LgTailConsts
+
+
+TailTerm, TailConsts = _tail_structs(ctypes.c_float)
+
+_F32, _I32, _BOOL = torch.float32, torch.int32, torch.bool
+# The tail's tensors in the order of ``struct LgTailIO``: name, dtype,
+# shape ("n" envs; "obs", "state", "act": the widths of the constants),
+# and whether a reset reads or writes it. "noise" may be None.
+TAIL_INPUTS = (
+    ("state", _F32, (STATE_ROWS, "n"), True),
+    ("tips", _F32, (TIP_ROWS, "n"), True),
+    ("goal_pose", _F32, (7, "n"), True),
+    ("goal_angvel", _F32, (3, "n"), False),
+    ("tip_prev", _F32, (9, "n"), False),
+    ("obj_prev", _F32, (7, "n"), False),
+    ("half_extents", _F32, ("n", 3), True),
+    ("action", _F32, ("n", "act"), True),
+    ("torque", _F32, ("n", 9), False),
+    ("wrench", _F32, ("n", 18), False),
+    ("noise", _F32, ("n", "obs"), True),
+    ("obs_low", _F32, ("obs",), True),
+    ("obs_high", _F32, ("obs",), True),
+    ("state_low", _F32, ("state",), False),
+    ("state_high", _F32, ("state",), False),
+    ("level", _F32, (), False),
+    ("frames", _I32, (), True),
+    ("reset_buf", _BOOL, ("n",), False),
+    ("goal_reset_buf", _BOOL, ("n",), False),
+    ("steps_count", _I32, ("n",), False),
+    ("successes", _I32, ("n",), False),
+)
+TAIL_OUTPUTS = (
+    ("obs", _F32, ("n", "obs"), True),
+    ("states", _F32, ("n", "state"), False),
+    ("reward", _F32, ("n",), False),
+    ("dones", _BOOL, ("n",), False),
+    ("reset_buf", _BOOL, ("n",), False),
+    ("goal_reset_buf", _BOOL, ("n",), False),
+    ("steps_count", _I32, ("n",), False),
+    ("successes", _I32, ("n",), False),
+    ("tip_prev", _F32, (9, "n"), True),
+    ("obj_prev", _F32, (7, "n"), True),
+    ("goal_pose", _F32, (7, "n"), False),
+    ("frames", _I32, (), True),
+    ("info", _F32, (TAIL_INFO_ROWS, "n"), False),
+    ("scalars", _F32, (3,), False),
+)
+
+
+class TailIO(ctypes.Structure):
+    """Mirror of ``struct LgTailIO``: the inputs' pointers, then the
+    outputs' as ``out_<name>``."""
+    _fields_ = ([(name, ctypes.c_void_p) for name, *_ in TAIL_INPUTS]
+                + [(f"out_{name}", ctypes.c_void_p) for name, *_ in TAIL_OUTPUTS])
+
+
+def _tail_shape(shape: tuple, consts, n: int) -> tuple:
+    """A ``TAIL_INPUTS`` / ``TAIL_OUTPUTS`` shape at ``n`` envs and the
+    constants' widths."""
+    dims = {"n": n, "obs": consts.obs_dim, "state": consts.state_dim,
+            "act": consts.action_dim}
+    return tuple(dims.get(d, d) for d in shape)
+
+
+def tail_io(consts, inputs: dict, reset: bool = False, real=torch.float32):
+    """(``TailIO``, outputs by name) of one tail launch: each input of
+    ``TAIL_INPUTS`` that the launch reads (a reset those it reads; "noise"
+    where the env adds observation noise) checked and its pointer set, each
+    output allocated with ``torch.empty`` on the inputs' device. ``real``
+    is the working type of the build (float32 on the card)."""
+    device, n = inputs["state"].device, inputs["state"].shape[-1]
+
+    def spec(dtype, shape):
+        return real if dtype == _F32 else dtype, _tail_shape(shape, consts, n)
+
+    io = TailIO()
+    for name, dtype, shape, in_reset in TAIL_INPUTS:
+        if (reset and not in_reset) or (name == "noise" and consts.obs_noise_std <= 0.0):
+            continue
+        t = inputs.get(name)
+        if t is None:
+            raise ValueError(f"mdp_tail: missing input {name!r}")
+        _check_tensor(name, t, *spec(dtype, shape), device)
+        setattr(io, name, t.data_ptr())
+    out = {}
+    for name, dtype, shape, in_reset in TAIL_OUTPUTS:
+        if in_reset or not reset:
+            dtype, shape = spec(dtype, shape)
+            out[name] = torch.empty(shape, dtype=dtype, device=device)
+            setattr(io, f"out_{name}", out[name].data_ptr())
+    return io, out
+
+
+def mdp_tail_cuda(consts, inputs: dict, reset: bool = False) -> dict:
+    """Launch the MDP tail kernel: ``consts`` a ``TailConsts`` (the env's,
+    ``env.tail_consts``), ``inputs`` the CUDA tensors of ``TAIL_INPUTS``
+    by name (``tail_io``). Returns the ``TAIL_OUTPUTS`` tensors by name (a
+    reset's alone). Raises on anything the kernel does not take."""
+    global launch_count
+    device = inputs["state"].device
+    if device.type != "cuda":
+        raise ValueError(f"mdp_tail_cuda needs CUDA tensors, got {device}")
+    io, out = tail_io(consts, inputs, reset)
+    lib = build()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.leibniz_mdp_tail(ctypes.byref(consts), ctypes.byref(io),
+                                  inputs["state"].shape[-1], int(reset), stream)
+    if rc != 0:
+        raise RuntimeError(f"mdp_tail kernel launch failed: CUDA error {rc}")
+    launch_count += 1
+    return out
+
+
+def tail_bytes(n: int, consts) -> int:
+    """Bytes one tail launch of a step must move for n envs, each input
+    read once and each output written once (``TAIL_INPUTS``,
+    ``TAIL_OUTPUTS`` at the constants' widths, the noise where it is on,
+    the scales and scalars once; ~1.7 KB an env at D4 + DR): they bound it,
+    its ~1,500 elementwise operations an env at D4 + DR (the plain tail's,
+    ``_OpCounter``'s count; ~300 at D1) taking a twentieth of their time at
+    the card's float32 rate."""
+    return sum(math.prod(_tail_shape(shape, consts, n)) * (1 if dtype == _BOOL else 4)
+               for name, dtype, shape, _ in TAIL_INPUTS + TAIL_OUTPUTS
+               if name != "noise" or consts.obs_noise_std > 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -986,6 +986,24 @@ def unpack_state(arr: torch.Tensor) -> PhysicsState:
     )
 
 
+def packed_view(ps: PhysicsState) -> torch.Tensor:
+    """The contiguous (31, N) tensor whose views ``unpack_state`` made the
+    fields of ``ps`` (a physics step's output, read in place, no copy);
+    ``pack_state(ps)`` for a state laid out otherwise."""
+    q = ps.q
+    n = q.shape[0]
+    size = (q.storage_offset() + STATE_ROWS * n) * q.element_size()
+    if q.stride() == (1, n) and q.untyped_storage().nbytes() >= size:
+        arr = q.as_strided((STATE_ROWS, n), (n, 1))
+        rows = unpack_state(arr)
+        if all(getattr(ps, f).data_ptr() == getattr(rows, f).data_ptr()
+               and getattr(ps, f).stride() == getattr(rows, f).stride()
+               and getattr(ps, f).shape == getattr(rows, f).shape
+               for f in ("q", "qd", "cube_pos", "cube_quat", "cube_linvel", "cube_angvel")):
+            return arr
+    return pack_state(ps)
+
+
 def pack_params(sp: SceneParams, n: int) -> torch.Tensor:
     """(N,)-batched (or unbatched, broadcast) SceneParams -> (40, N)."""
     rows = []

@@ -12,8 +12,9 @@ For each env count: a D1 torque env on the device (``cuda:0`` unless
 uniform random actions in [-1, 1] and a timed chunk of as many (host clock
 around work that ends in ``torch.cuda.synchronize``). On the card each env
 step replays the env's captured step (the reference times its jitted one)
-and launches the physics kernel and the fingertip kernel once each, so a
-count costs 2 * (1 + 2 * bench_len) launches. The YAML (``--bench_file``) has the reference script's keys;
+and launches the physics, fingertip and tail kernels once each, so a
+count costs 3 * (1 + 2 * bench_len) launches. The YAML (``--bench_file``)
+has the reference script's keys;
 ``device`` is the card's name (``cpu`` on the CPU). A user tool: it prints
 env-steps/s of the env alone, not a training rate.
 """

@@ -43,7 +43,7 @@ carry, the policy, central value and env step) and the update path (epoch
 minus rollout). Prints one JSON line, with ``device`` (the ``nvidia-smi``
 name and power limit, ``cpu`` on the CPU) and ``kernel_launches`` (the
 hand-written kernels' launches: the physics kernel's, and on the card the
-fingertip kernel's once per env reset and step).
+fingertip and tail kernels' once each per env reset and step).
 """
 
 from __future__ import annotations

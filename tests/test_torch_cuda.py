@@ -22,9 +22,17 @@ imports JAX, so on such a machine run it without the conftest:
 - the fingertip kernel (``fingertip_state_cuda``) against
   ``fingertip_components_v2`` in float32 at 8192 envs and a ragged N, within
   TIP_TOL; one fingertip launch per eager env step beside the physics
-  kernel's, the plain version never on CUDA tensors, one fingertip launch
-  in a captured env step; its wrapper refuses a wrong dtype, shape, layout
-  or device.
+  kernel's and the tail kernel's, the plain version never on CUDA tensors,
+  one fingertip launch in a captured env step; its wrapper refuses a wrong
+  dtype, shape, layout or device;
+- the tail kernel (``_step_tail_cuda``, ``mdp_tail_cuda``) against the
+  env's plain tail (``_step_tail_plain``) on the same card at 8192 envs on
+  D1, D4 + DR and the branch-covering spec sets of
+  ``torch_tail_cases.py`` within TAIL_CARD_TOL: obs, states, reward, the
+  goal pose and history slots, the flags and counters exactly, every info
+  key with its dtype; a reset's tail alike; a graphed D4 + DR env step and
+  an eager one bitwise equal; its wrapper refuses a wrong dtype, shape,
+  layout or device and a missing input.
 """
 
 import importlib.util
@@ -39,6 +47,7 @@ from leibnizgym_tpu_torch.models import trifinger as tf_model
 from leibnizgym_tpu_torch.ops import cuda_engine
 from leibnizgym_tpu_torch.ops import engine_v2
 from leibnizgym_tpu_torch.ops.types import PhysicsState, SceneParams, SolverConfig
+from torch_tail_cases import TAIL_CASES, step_inputs, tail_env, with_schedules
 
 pytestmark = pytest.mark.cuda
 
@@ -215,10 +224,10 @@ def test_fingertip_kernel_matches_plain_on_card(dev, n, spread):
 
 
 def test_env_step_launches_one_fingertip_kernel(dev, monkeypatch):
-    """An eager env step adds two launches (the physics kernel's and the
-    fingertip kernel's, one call of its wrapper) and never runs the plain
-    fingertip version; the captured env step holds both, one each, and a
-    replay adds them without calling the wrapper."""
+    """An eager env step adds three launches (the physics kernel's, the
+    fingertip kernel's, one call of its wrapper, and the tail kernel's) and
+    never runs the plain fingertip version; the captured env step holds all
+    three, one each, and a replay adds them without calling the wrapper."""
     def refuse(*args, **kwargs):
         raise AssertionError("the plain fingertip version ran on CUDA tensors")
 
@@ -242,16 +251,16 @@ def test_env_step_launches_one_fingertip_kernel(dev, monkeypatch):
         before, seen = cuda_engine.launch_count, len(calls)
         state = tenv.env_step(st, env.params, state, action,
                               tenv.draw_step_randoms(st, gen, n, dev))[0]
-        assert cuda_engine.launch_count - before == 2 and len(calls) - seen == 1, t
+        assert cuda_engine.launch_count - before == 3 and len(calls) - seen == 1, t
     env.reset(tenv.draw_init_randoms(st, gen, n, dev))
     for t in range(3):  # warm-up and capture, then replays
         action = torch.rand((n, st.action_dim), generator=gen, device=dev) * 2.0 - 1.0
         before, seen = cuda_engine.launch_count, len(calls)
         env.step(action, tenv.draw_step_randoms(st, gen, n, dev))
-        assert cuda_engine.launch_count - before == 2, t
+        assert cuda_engine.launch_count - before == 3, t
         assert len(calls) - seen == (2 if t == 0 else 0), t
     torch.cuda.synchronize()
-    assert env._graphs["step"].graph.launches == 2
+    assert env._graphs["step"].graph.launches == 3
     assert calls == [(9, n)] * len(calls)
 
 
@@ -270,3 +279,135 @@ def test_fingertip_wrapper_refuses_bad_inputs(dev):
     with pytest.raises(ValueError):
         cuda_engine.fingertip_state_cuda(q, qd.cpu())
     assert cuda_engine.launch_count == before
+
+
+# The tail kernel against the plain tail, both float32 on the card,
+# |kernel - plain| <= atol + rtol * max |plain| of the quantity: the same
+# formulas in the same order, each product that meets a sum rounded on its
+# own as PyTorch's separate kernels round it (nvcc would contract the two
+# into an FMA), and a division by a Python float taken as PyTorch's CUDA
+# kernel takes it, a product with the reciprocal. So the per-env values
+# agree to the bit on these cases; the bound holds the info means, whose
+# reductions sum in another order, and an ulp of exp, asin or pow, which
+# asin near 1 turns into ~1e-4 rad.
+TAIL_CARD_TOL = (1e-5, 1e-5)
+TAIL_CARD_CASES = ["d1", "d4_dr", "d4_rotating", "branches_p1_inside", "branches_p3_inside",
+                   "branches_p1_before", "branches_p3_after"]
+
+
+def _tail_case(dev, case, n=8192):
+    """(static, params, head) of ``case`` at ``n`` envs on the card."""
+    preset, changes, level, branches, _ = TAIL_CASES[case]
+    env = tail_env(preset, changes, level, n, dev)
+    state, action, draws = step_inputs(env, seed=sum(map(ord, case)))
+    st = env.static
+    if branches is not None:
+        st = with_schedules(st, int(state.frames), *branches)
+    return st, env.params, tenv._step_head(st, env.params, state, action, draws)
+
+
+def _within(got, ref, what):
+    atol, rtol = TAIL_CARD_TOL
+    assert got.shape == ref.shape and got.dtype == ref.dtype, what
+    if ref.numel():
+        err = float((got.double() - ref.double()).abs().max())
+        assert err <= atol + rtol * float(ref.double().abs().max()), (what, err)
+        return err
+    return 0.0
+
+
+@pytest.mark.parametrize("case", TAIL_CARD_CASES)
+def test_tail_kernel_matches_plain_on_card(dev, case):
+    st, params, head = _tail_case(dev, case)
+    before = cuda_engine.launch_count
+    new, obs, states, reward, dones, info = tenv._step_tail_cuda(st, params, *head)
+    assert cuda_engine.launch_count - before == 2  # the fingertip and tail kernels
+    ref, ref_obs, ref_states, ref_reward, ref_dones, ref_info = tenv._step_tail_plain(
+        st, params, *head)
+    torch.cuda.synchronize()
+    errs = {name: _within(got, want, name) for name, got, want in (
+        ("obs", obs, ref_obs), ("states", states, ref_states), ("reward", reward, ref_reward),
+        ("goal_pose", new.goal_pose_cm, ref.goal_pose_cm),
+        ("tip_prev", new.tip_pos_prev_cm, ref.tip_pos_prev_cm),
+        ("obj_prev", new.obj_posquat_prev_cm, ref.obj_posquat_prev_cm))}
+    for name, got, want in (("dones", dones, ref_dones), ("reset_buf", new.reset_buf,
+                                                          ref.reset_buf),
+                            ("goal_reset_buf", new.goal_reset_buf, ref.goal_reset_buf),
+                            ("steps_count", new.steps_count, ref.steps_count),
+                            ("successes", new.successes, ref.successes),
+                            ("frames", new.frames, ref.frames)):
+        assert got.dtype == want.dtype and torch.equal(got, want), (case, name)
+    assert list(info) == list(ref_info), case
+    for key, want in ref_info.items():
+        got = info[key]
+        assert got.dtype == want.dtype and got.shape == want.shape, key
+        if want.dtype == torch.int64:
+            assert int(got) == int(want), key
+        else:
+            errs[key] = _within(got, want, key)
+    print(f"tail {case} max_abs_err " + " ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    # the step's state: a reset took place and every env stepped
+    assert int(new.steps_count[1]) == 1 and bool(new.reset_buf[3])
+
+
+@pytest.mark.parametrize("case", ["d1", "d4_dr", "branches_p1_inside"])
+def test_tail_kernel_reset_matches_plain_on_card(dev, case):
+    preset, changes, level, _, _ = TAIL_CASES[case]
+    env = tail_env(preset, changes, level, 8192, dev)
+    st = env.static
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u, norm, dr_blocks, noise = tenv.draw_init_randoms(st, gen, st.num_envs, dev)
+    state = tenv._reset_head(st, env.params, u, norm, dr_blocks)
+    got, obs = tenv._reset_tail_cuda(st, env.params, state, noise)
+    ref, ref_obs = tenv._reset_tail_plain(st, env.params, state, noise)
+    torch.cuda.synchronize()
+    _within(obs, ref_obs, "obs")
+    _within(got.tip_pos_prev_cm, ref.tip_pos_prev_cm, "tip_prev")
+    _within(got.obj_posquat_prev_cm, ref.obj_posquat_prev_cm, "obj_prev")
+    assert torch.equal(got.frames, ref.frames)
+
+
+def test_tail_graphed_step_matches_eager_bitwise(dev):
+    """The D4 + DR env's captured reset and steps against the eager
+    functions from the same draws and actions: obs, states, reward, dones,
+    every info value and the env state bitwise equal."""
+    env = tail_env("trifinger_difficulty_4_curriculum_dr", {}, 0.3, 1024, dev)
+    st, n = env.static, env.static.num_envs
+    gen = torch.Generator(device=dev).manual_seed(7)
+    init = tenv.draw_init_randoms(st, gen, n, dev)
+    obs = env.reset(init)
+    state, ref_obs = tenv.env_reset(st, env.params, *init)
+    assert torch.equal(obs, ref_obs)
+    for t in range(6):
+        action = torch.rand((n, st.action_dim), generator=gen, device=dev) * 2.0 - 1.0
+        draws = tenv.draw_step_randoms(st, gen, n, dev)
+        obs, reward, dones, info = env.step(action, draws)
+        state, ref_obs, ref_states, ref_reward, ref_dones, ref_info = tenv.env_step(
+            st, env.params, state, action, draws)
+        assert torch.equal(obs, ref_obs) and torch.equal(env.get_state(), ref_states), t
+        assert torch.equal(reward, ref_reward) and torch.equal(dones, ref_dones), t
+        assert list(info) == list(ref_info), t
+        assert all(torch.equal(info[k], ref_info[k]) for k in info), t
+    ours, ref = tenv.env_state_tensors(env.state), tenv.env_state_tensors(state)
+    assert all(torch.equal(ours[k], ref[k]) for k in ref)
+
+
+def test_tail_wrapper_refuses_bad_inputs(dev):
+    st, params, head = _tail_case(dev, "d1", n=64)
+    state, physics, tau, wrench, action_buf, noise = head
+    s31 = engine_v2.packed_view(physics)
+    tips = cuda_engine.fingertip_state_cuda(s31[0:9], s31[9:18])
+    good = tenv._tail_inputs(params, state, s31, tips, action_buf, noise)
+    good.update(torque=tau, wrench=wrench)
+    consts = tenv.tail_consts(st)
+    before = cuda_engine.launch_count
+    for name, bad, error in (("state", s31.double(), TypeError),
+                             ("tips", tips[:, :-1], ValueError),
+                             ("action", torch.zeros((9, 64), device=dev).T, ValueError),
+                             ("reset_buf", state.reset_buf.int(), TypeError),
+                             ("torque", tau.cpu(), ValueError),
+                             ("wrench", None, ValueError)):
+        with pytest.raises(error):
+            cuda_engine.mdp_tail_cuda(consts, dict(good, **{name: bad}))
+    assert cuda_engine.launch_count == before
+    assert s31.data_ptr() == physics.q.data_ptr()  # the physics output, read in place

@@ -39,8 +39,8 @@ def dev():
 def test_graphed_epoch_on_the_card(dev):
     """Three captured epochs at 256 envs against ``train_iteration`` from the
     same generator state: metrics, learner and carry bitwise equal, and the
-    graphed epochs count their kernel launches, 64 each (a physics and a
-    fingertip launch per env step)."""
+    graphed epochs count their kernel launches, 96 each (a physics, a
+    fingertip and a tail launch per env step)."""
     env = tenv.TrifingerEnv(config={"num_instances": 256, "command_mode": "torque",
                                     "asymmetric_obs": True}, device=dev, verbose=False)
     cfg = tppo.PPOConfig(minibatch_size=256, cv_minibatch_size=256)
@@ -51,7 +51,7 @@ def test_graphed_epoch_on_the_card(dev):
         me = tppo.train_iteration(cfg, env.static, env.params, eager)
         before = cuda_engine.launch_count
         mg = epoch(cfg, env.static, env.params, graphed)
-        assert cuda_engine.launch_count - before == 2 * cfg.horizon
+        assert cuda_engine.launch_count - before == 3 * cfg.horizon
         torch.cuda.synchronize()
         for k, v in me.items():
             assert torch.equal(v, mg[k]) if torch.is_tensor(v) else v == mg[k], (e, k)
@@ -68,8 +68,8 @@ def test_env_step_graph_on_the_card(dev):
     """The captured env reset and step against the eager functions from the
     same draws and actions: bitwise equal outputs and state (after the first
     reset too), an obs kept by the caller unchanged by the next step, one
-    physics and one fingertip kernel launch per call, the captured ones
-    counted from the replays."""
+    physics, one fingertip and one tail kernel launch per call, the captured
+    ones counted from the replays."""
     n = 512
     env = tenv.TrifingerEnv(config={"num_instances": n, "command_mode": "torque",
                                     "asymmetric_obs": True}, device=dev, verbose=False)
@@ -94,7 +94,7 @@ def test_env_step_graph_on_the_card(dev):
         if kept is not None:
             assert torch.equal(kept[0], kept[1]), t
         kept = (obs, obs.clone())
-    assert cuda_engine.launch_count - before == 2 * 2 * (1 + 5)
+    assert cuda_engine.launch_count - before == 2 * 3 * (1 + 5)
     ours, ref = tenv.env_state_tensors(env.state), tenv.env_state_tensors(state)
     assert all(torch.equal(ours[k], ref[k]) for k in ref)
 
@@ -138,7 +138,7 @@ def test_nccl_rank_graphed_epoch_on_the_card(dev, tmp_path):
             shard.counts.clear()
             before = cuda_engine.launch_count
             mg = epoch(cfg, env.static, env.params, graphed)
-            assert cuda_engine.launch_count - before == 2 * cfg.horizon, e
+            assert cuda_engine.launch_count - before == 3 * cfg.horizon, e
             assert dict(shard.counts) == counts == {
                 "all_reduce": epoch.ac_steps + epoch.cv_steps + 3}, (e, counts)
             mp = alone(cfg, env.static, env.params, plain)

@@ -26,12 +26,22 @@ The same build holds the fingertip kernel's per-env body
 states whose tip orientations reach each branch of the Shepperd selection,
 and at q = 0.
 
+And it holds the tail kernel's per-env body (``leibniz_mdp_tail_host``:
+rewards, termination, counters, observation, states, history slots and
+the info columns of an env step, or the observation of a reset) to the
+env's plain tail (``env._step_tail_plain``, ``_reset_tail_plain``) in
+float64 at TAIL_TOL, the flags and counters exactly, over the D1, D4 + DR
+and rotating D4 presets, a spec set that reaches every branch, rows that
+reset this step and rows exactly at a tolerance; and the ctypes mirrors of
+its structs to the layout each build gives them.
+
 The library is built once into build/leibnizgym_tpu_torch/host-<hash>/
 under a file lock, so parallel test workers share one build. It is a test
 tool: the port's CPU path never loads it.
 """
 
 import ctypes
+import dataclasses
 import fcntl
 import hashlib
 import os
@@ -49,6 +59,7 @@ from leibnizgym_tpu_torch.ops.engine_v2 import pack_params, pack_state, step_pac
 from leibnizgym_tpu_torch.ops.types import SolverConfig
 from test_torch_common import (
     STATE_FIELDS, jax_inputs, jax_physics_step, random_physics, scene_arrays, torch_inputs)
+from torch_tail_cases import TAIL_CASES, step_inputs, tail_env, with_schedules
 
 torch.set_num_threads(1)
 
@@ -83,6 +94,7 @@ def _host_library(dtype=torch.float64) -> ctypes.CDLL:
                                                           ctypes.POINTER(consts)]
     lib.leibniz_fingertip_state_host.argtypes = [ptr] * 3 + [ctypes.c_int,
                                                              ctypes.POINTER(consts)]
+    lib.leibniz_mdp_tail_host.argtypes = [ptr, ptr, ctypes.c_int, ctypes.c_int]
     assert lib.leibniz_consts_size() == ctypes.sizeof(consts)
     return lib
 
@@ -322,3 +334,190 @@ def test_host_fingertip_matches_plain(host_lib, case):
     quat = torch.stack([out[13 * f + 3: 13 * f + 7] for f in range(3)])
     assert float((quat.norm(dim=1) - 1.0).abs().max()) < 1e-12
     assert float(out[7:13].abs().max()) > 0.1
+
+
+# ---------------------------------------------------------------------------
+# The MDP tail kernel's per-env body
+# ---------------------------------------------------------------------------
+
+# The tail kernel and the plain tail evaluate the same formulas in the same
+# order, the float32 step count and schedules too; in float64 they differ by
+# rounding alone: measured 4.6e-14 at most over |plain| + 1 (a total
+# reward), so the bound leaves ~20x.
+TAIL_TOL = 1e-12
+TAIL_N = 37  # one full block of 32 envs on the card and a ragged one of 5
+TailTerm64, TailConsts64 = cuda_engine._tail_structs(ctypes.c_double)
+
+
+def _tips_cols(physics):
+    from leibnizgym_tpu_torch.ops.engine_v2 import fingertip_components_v2
+
+    plain = fingertip_components_v2(tuple(physics.q[:, i] for i in range(9)),
+                                    tuple(physics.qd[:, i] for i in range(9)))
+    return torch.stack([c for finger in plain for part in finger for c in part])
+
+
+def _host_tail(lib, static, params, head, reset=False):
+    """The host build's tail on ``head`` (``_step_head``'s outputs, or a
+    reset's state): the outputs by name, and the step's info."""
+    from leibnizgym_tpu_torch.envs.trifinger import env as tenv
+    from leibnizgym_tpu_torch.ops.engine_v2 import packed_view
+
+    if reset:
+        state, noise = head
+        physics, action_buf = state.physics, state.action_buf
+    else:
+        state, physics, tau, wrench, action_buf, noise = head
+    inputs = tenv._tail_inputs(params, state, packed_view(physics), _tips_cols(physics),
+                               action_buf, noise)
+    if not reset:
+        inputs.update(torque=tau, wrench=wrench)
+    consts = tenv.tail_consts(static, TailConsts64)
+    io, out = cuda_engine.tail_io(consts, inputs, reset, real=torch.float64)
+    assert lib.leibniz_mdp_tail_host(ctypes.byref(consts), ctypes.byref(io), TAIL_N,
+                                     int(reset)) == 0
+    return out, None if reset else tenv._tail_info(static, out)
+
+
+def _close(a, b, what):
+    a, b = a.double(), b.double()
+    assert a.shape == b.shape, what
+    err = float(((a - b).abs() / (b.abs() + 1.0)).max()) if a.numel() else 0.0
+    assert err < TAIL_TOL, (what, err)
+
+
+@pytest.mark.parametrize("case", sorted(TAIL_CASES))
+def test_host_tail_matches_plain(host_lib, case):
+    """The step's tail: obs, states, reward, the goal pose and history slots
+    at TAIL_TOL; dones, the reset and goal-reset flags, the step and
+    success counters and the frame counter exactly; every info key in the
+    plain tail's order, the counts exactly."""
+    from leibnizgym_tpu_torch.envs.trifinger import env as tenv
+    from leibnizgym_tpu_torch.envs.trifinger.rewards import quat_diff_rad_c
+
+    preset, changes, level, branches, at_tolerance = TAIL_CASES[case]
+    env = tail_env(preset, changes, level, TAIL_N, "cpu", torch.float64)
+    state, action, draws = step_inputs(env, seed=sum(map(ord, case)))
+    st, params = env.static, env.params
+    if branches is not None:
+        st = with_schedules(st, int(state.frames), *branches)
+    head = tenv._step_head(st, params, state, action, draws)
+    if at_tolerance:
+        # pin the final tolerances to row 3's position and orientation
+        # distances after this step: the row sits exactly on both
+        ref = tenv._step_tail_plain(st, params, *head)[0]
+        goal, cube = ref.goal_pose_cm, ref.physics
+        d = [goal[i] - cube.cube_pos[:, i] for i in range(3)]
+        pos_dist = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+        ori_dist = quat_diff_rad_c(tuple(cube.cube_quat[:, i] for i in range(4)),
+                                   tuple(goal[3 + i] for i in range(4)))
+        st = dataclasses.replace(st, position_tolerance=float(pos_dist[3]),
+                                 orientation_tolerance=float(ori_dist[3]))
+    new, obs, states, reward, dones, info = tenv._step_tail_plain(st, params, *head)
+    out, host_info = _host_tail(host_lib, st, params, head)
+
+    for name, ref in (("obs", obs), ("states", states), ("reward", reward),
+                      ("goal_pose", new.goal_pose_cm), ("tip_prev", new.tip_pos_prev_cm),
+                      ("obj_prev", new.obj_posquat_prev_cm)):
+        _close(out[name], ref, name)
+    for name, ref in (("dones", dones), ("reset_buf", new.reset_buf),
+                      ("goal_reset_buf", new.goal_reset_buf), ("steps_count", new.steps_count),
+                      ("successes", new.successes), ("frames", new.frames)):
+        assert out[name].dtype == ref.dtype and torch.equal(out[name], ref), (case, name)
+    assert list(host_info) == list(info), case
+    for key, ref in info.items():
+        if key.endswith("/count"):
+            assert host_info[key].dtype == torch.int64 and int(host_info[key]) == int(ref), key
+        elif ref.dtype == torch.float32:
+            # the plain tail averages these flags and counters in float32
+            # whatever the env's type (the card's type; the host build's is
+            # float64): equal to float32's rounding
+            assert abs(float(host_info[key]) - float(ref)) <= 1e-6 * (abs(float(ref)) + 1.0), key
+        else:
+            _close(host_info[key], ref, key)
+    # the case bites: the flags it sets up take effect
+    assert bool(new.reset_buf[3]) and bool(new.reset_buf[4]) and int(new.steps_count[1]) == 1
+    if at_tolerance:
+        if st.curriculum_success_gated:  # the level's tolerances are a lerp
+            assert float(info["env/strict_success_frac"]) > 0.0
+        else:
+            assert bool(new.goal_reset_buf[3]) and int(new.successes[3]) >= 1 and bool(dones[3])
+            assert int(info["env/current_position_goal/count"]) >= 1
+            assert int(info["env/current_orientation_goal/count"]) >= 1
+    if branches is not None:
+        # the window holds the step only "inside"; the ramp is 0 "before"
+        where = branches[1]
+        assert len([k for k in info if k.startswith("env/rewards/")]) == 7
+        assert (float(info["env/rewards/object_dist"]) != 0.0) == (where == "inside")
+        assert (float(info["env/rewards/object_rot_delta"]) != 0.0) == (where != "before")
+        assert 0.0 < float(info["env/position_tolerance"]) < 0.08
+
+
+@pytest.mark.parametrize("case", ["d1", "d4_dr", "branches_p1_inside"])
+def test_host_tail_reset_matches_plain(host_lib, case):
+    """A reset's tail: the observation (noise included where the case has
+    it), the history slots and the frame counter."""
+    from leibnizgym_tpu_torch.envs.trifinger import env as tenv
+
+    preset, changes, level, _, _ = TAIL_CASES[case]
+    env = tail_env(preset, changes, level, TAIL_N, "cpu", torch.float64)
+    st = env.static
+    gen = torch.Generator().manual_seed(5)
+    u, norm, dr_blocks, noise = tenv.draw_init_randoms(st, gen, TAIL_N, "cpu", torch.float64)
+    state = tenv._reset_head(st, env.params, u, norm, dr_blocks)
+    ref, obs = tenv._reset_tail_plain(st, env.params, state, noise)
+    out, _ = _host_tail(host_lib, st, env.params, (state, noise), reset=True)
+    assert set(out) == {"obs", "tip_prev", "obj_prev", "frames"}
+    _close(out["obs"], obs, "obs")
+    _close(out["tip_prev"], ref.tip_pos_prev_cm, "tip_prev")
+    _close(out["obj_prev"], ref.obj_posquat_prev_cm, "obj_prev")
+    assert torch.equal(out["frames"], ref.frames)
+    assert (noise is not None) == (st.obs_noise_std > 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_tail_structs_match_the_source(dtype):
+    """Each ctypes mirror of the tail's structs (``LgTerm``,
+    ``LgTailConsts``, ``LgTailIO``) has the fields, offsets and sizes the
+    build of csrc/physics_step.cu in ``dtype`` gives them."""
+    lib = _host_library(dtype)
+    real = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+    term, consts = cuda_engine._tail_structs(real)
+    for which, struct in enumerate((term, consts, cuda_engine.TailIO)):
+        assert cuda_engine.struct_layout(lib, which) == cuda_engine.ctypes_layout(struct), which
+    names = [name for name, *_ in cuda_engine.TailIO._fields_]
+    assert names == ([name for name, *_ in cuda_engine.TAIL_INPUTS]
+                     + [f"out_{name}" for name, *_ in cuda_engine.TAIL_OUTPUTS])
+
+
+@pytest.mark.parametrize("case", ["d4_dr", "branches_p1_inside"])
+def test_tail_consts_map_every_spec_field(case):
+    """Every field of ``RewardTermSpec`` but its name reaches the kernel's
+    term struct under its own name, terms in REWARD_TERM_NAMES order, with
+    the derived Python-double expressions; the info block holds every
+    term's row in that order, then the other rows, the two counts last."""
+    from leibnizgym_tpu_torch.envs.trifinger import env as tenv
+    from leibnizgym_tpu_torch.envs.trifinger.rewards import REWARD_TERM_NAMES, RewardTermSpec
+
+    preset, changes, level, _, _ = TAIL_CASES[case]
+    st = tail_env(preset, changes, level, TAIL_N, "cpu", torch.float64).static
+    k = tenv.tail_consts(st, TailConsts64)
+    specs = st.reward_spec_dict()
+    fields = [f.name for f in dataclasses.fields(RewardTermSpec) if f.name != "name"]
+    term_fields = {name for name, *_ in TailTerm64._fields_}
+    assert set(fields) <= term_fields
+    assert len(k.terms) == len(REWARD_TERM_NAMES)
+    for i, name in enumerate(REWARD_TERM_NAMES):
+        spec, term = specs[name], k.terms[i]
+        for f in fields:
+            assert getattr(term, f) == getattr(spec, f), (name, f)
+        assert term.weight_dt == spec.weight * st.dt
+        assert term.sched_span == spec.sched_end - spec.sched_start
+        assert term.sched_enabled == int(spec.sched_enabled)
+        assert term.kernel_scale == (spec.scale if spec.scale != 1.0 else 30.0)
+        assert tenv._INFO_ROW[name] == i
+    rows = sorted(tenv._INFO_ROW, key=tenv._INFO_ROW.get)
+    assert len(rows) == cuda_engine.TAIL_INFO_ROWS
+    assert rows[len(REWARD_TERM_NAMES):] == list(cuda_engine.TAIL_INFO_NAMES)
+    assert rows[-2:] == ["pos_count", "ori_count"]
+    assert (k.obs_dim, k.state_dim, k.action_dim) == (st.obs_dim, st.state_dim, st.action_dim)
